@@ -18,6 +18,10 @@ A fifth rule, `bench`, holds a trainer against another on real banks
 that never reach capacity (the bench configuration's): the strict state
 rule plus a maximum prediction gap < 1e-3 on the valid training inputs.
 
+A sixth, `nan`, holds a trainer that starts from a state with one NaN in
+one patch's active C (`nan_case`): every array's NaN pattern must be
+equal, and the other patches agree by the strict rule.
+
 Inputs are numpy arrays made from a fixed seed, so every framework gets
 the same bytes. `compare` raises AssertionError with the failing metric.
 """
@@ -34,16 +38,21 @@ from gp_compressor_tpu_torch.ops.kernels import RBFParams
 
 SIGMAF_SQ, L_SQ, S20 = 100.0, 1.0, 0.1
 REGIMES = ("strict_d1", "strict_d3", "realistic", "geometric")
+# state sizes the card runs the strict regimes at: partial warps and 1 to 4
+# slots per lane of the training kernel
+SLOT_SWEEP = (8, 16, 31, 32, 33, 64, 100, 128)
+NAN_PATCH = 5
 
 
-def regime(name: str, slots: int = 16, capacity: int = 14):
+def regime(name: str, slots: int = 16, capacity: int = 14, seed: int = 0):
     """(cfg, X [B,P,2] f32, Y [B,P,D] f32, mask [B,P] bool) for a regime.
-    slots / capacity resize the strict regimes' state (the card runs one
-    at 128 slots to reach the opt-in shared-memory path)."""
+    slots resizes the state of every regime; capacity (capped at
+    slots - 1) and seed apply to the strict regimes."""
     if name in ("strict_d1", "strict_d3"):
         dout = 1 if name == "strict_d1" else 3
-        r = np.random.default_rng(0)
+        r = np.random.default_rng(seed)
         B, P = 130, 12
+        capacity = min(capacity, slots - 1)
         cfg = GPConfig(capacity=capacity, slots=slots, dout=dout,
                        eps_tol=1e-4)
         X = r.uniform(-20, 20, size=(B, P, 2)).astype(np.float32)
@@ -53,7 +62,7 @@ def regime(name: str, slots: int = 16, capacity: int = 14):
     if name == "realistic":
         r = np.random.default_rng(3)
         B, P = 140, 80
-        cfg = GPConfig(capacity=8, slots=16, dout=1, eps_tol=2.0)
+        cfg = GPConfig(capacity=8, slots=slots, dout=1, eps_tol=2.0)
         X = r.uniform(-0.075, 0.075, size=(B, P, 2)).astype(np.float32)
         f = 0.03 * np.sin(8 * X[..., 0]) + 0.02 * np.cos(11 * X[..., 1])
         Y = (f + 0.004 * r.standard_normal((B, P)))[..., None] \
@@ -63,7 +72,7 @@ def regime(name: str, slots: int = 16, capacity: int = 14):
         r = np.random.default_rng(7)
         B, P = 130, 40
         half = 0.15 / 2
-        cfg = GPConfig(capacity=14, slots=16, dout=1,
+        cfg = GPConfig(capacity=14, slots=slots, dout=1,
                        novelty_mode="geometric", geom_dmin=0.05,
                        geom_max_bv=3, geom_gamma_min_rel=1e-2)
         X = r.uniform(-half, half, size=(B, P, 2)).astype(np.float32)
@@ -71,6 +80,44 @@ def regime(name: str, slots: int = 16, capacity: int = 14):
         mask = r.uniform(size=(B, P)) > 0.1
         return cfg, X, Y, mask
     raise ValueError(f"unknown regime {name!r}")
+
+
+def nan_case():
+    """(cfg, first, second): two passes of strict_d1 inputs at the bench's
+    32 slots (seeds 0 and 1), each an (X, Y, mask) triple. Train `first`
+    from an empty state, put NaN into it with `poison`, then train
+    `second` on it with both trainers and compare by the `nan` rule."""
+    cfg, *first = regime("strict_d1", slots=32, capacity=30)
+    second = regime("strict_d1", slots=32, capacity=30, seed=1)[1:]
+    return cfg, tuple(first), tuple(second)
+
+
+def poison(state: SOGPState) -> SOGPState:
+    """A copy of `state` with NaN at C[NAN_PATCH, i, i] of that patch's
+    first active slot i."""
+    i = int(torch.nonzero(state.active[NAN_PATCH])[0])
+    C = state.C.clone()
+    C[NAN_PATCH, i, i] = float("nan")
+    return state._replace(C=C)
+
+
+def division_cases(n_random: int = 1 << 20):
+    """(a, b) float32 arrays for holding the kernel's inline division to
+    IEEE a / b: every pair of signed zeros, denormals, the fast path's
+    range limits (2^-60, 2^61), ordinary, huge and infinite values and
+    NaN; then random bit patterns (all magnitudes) and random normal
+    values (the fast path), n_random pairs each."""
+    edge = np.array([0.0, 1e-45, 3e-39, 1.1754944e-38, 2.0 ** -61, 2.0 ** -60,
+                     1e-7, 0.1, 1.0, 1.5, 3.0, 100.0, 2.0 ** 60, 2.0 ** 61,
+                     2.0 ** 126, 3.4028235e38, np.inf], np.float32)
+    edge = np.concatenate([edge, -edge, [np.nan]]).astype(np.float32)
+    a, b = (v.ravel() for v in np.meshgrid(edge, edge))
+    r = np.random.default_rng(11)
+    bits = r.integers(0, 2 ** 32, size=(2, n_random), dtype=np.uint64)
+    ra, rb = bits.astype(np.uint32).view(np.float32)
+    na, nb = (r.normal(size=(2, n_random))
+              * 10.0 ** r.integers(-8, 9, size=(2, n_random))).astype(np.float32)
+    return np.concatenate([a, ra, na]), np.concatenate([b, rb, nb])
 
 
 def geometric_probes() -> np.ndarray:
@@ -132,6 +179,18 @@ def compare(name: str, ref: SOGPState, out: SOGPState, X: torch.Tensor,
         gap = float((m1 - m2).abs()[mask].max())
         assert gap < 1e-3, f"max prediction gap {gap}"
         return {"max_abs_err": err, "max_pred_gap": gap}
+    if name == "nan":
+        for f in SOGPState._fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if x.dtype != np.bool_:
+                assert np.array_equal(np.isnan(x), np.isnan(y)), \
+                    f"{f}: NaN patterns differ"
+        assert np.isnan(b.C[NAN_PATCH]).any(), "the NaN did not spread"
+        keep = np.arange(a.C.shape[0]) != NAN_PATCH
+        err = _same_state(SOGPState(*[v[keep] for v in a]),
+                          SOGPState(*[v[keep] for v in b]))
+        return {"max_abs_err": err,
+                "nan_entries": int(np.isnan(b.C[NAN_PATCH]).sum())}
     if name == "realistic":
         same_size = float((a.active.sum(1) == b.active.sum(1)).mean())
         assert same_size > 0.9, f"sizes agree on {same_size}"

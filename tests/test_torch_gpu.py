@@ -1,7 +1,9 @@
 """Card-only tests: the fused SOGP training kernel against its plain
 PyTorch version, on the card, for the four training regimes of
-tests/test_pallas_sogp.py (rules in
-gp_compressor_tpu_torch/testing/sogp_regimes.py).
+tests/test_pallas_sogp.py, the strict ones over state sizes of 8 to 128
+slots, the realistic one at 32 slots, a state with a NaN and the bench
+banks (rules in gp_compressor_tpu_torch/testing/sogp_regimes.py), and the
+kernel's inline division against IEEE division.
 
 This file imports no JAX. Run it on a machine with a CUDA card:
 
@@ -28,14 +30,38 @@ def dev():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture(scope="module")
+def bench(dev):
+    """The bench configuration's banks, from the port's own front end."""
+    import chip_smoke
+    from gp_compressor_tpu_torch.utils import synthetic
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    ccfg = chip_smoke.bench_config()
+    pts, cols = (torch.from_numpy(a).to(dev) for a in synthetic.room_cloud(
+        n=chip_smoke.N_POINTS, seed=0))
+    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    batch = compressor.project(pts, cols, valid, ccfg)
+    return ccfg, batch, compressor.default_params(ccfg, dev)
+
+
+def _on(dev, *arrays):
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
 def _inputs(dev, name, **kw):
     cfg, X, Y, M = sogp_regimes.regime(name, **kw)
-    return (cfg,) + tuple(torch.from_numpy(a).to(dev) for a in (X, Y, M))
+    return (cfg,) + _on(dev, X, Y, M)
 
 
-def _both(dev, cfg, X, Y, M, **kw):
-    kp = sogp_regimes.params(dev)
-    init = sparse_gp.init_batch(cfg, X.shape[0], device=dev)
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+def _both(dev, cfg, X, Y, M, init=None, kp=None, **kw):
+    kp = sogp_regimes.params(dev) if kp is None else kp
+    if init is None:
+        init = sparse_gp.init_batch(cfg, X.shape[0], device=dev)
     n0 = sogp_train.LAUNCHES
     out = sogp_train.add_points_batch_cuda(kp, cfg, init, X, Y, M, **kw)
     torch.cuda.synchronize()
@@ -49,6 +75,76 @@ def test_kernel_matches_plain(dev, name):
     cfg, X, Y, M = _inputs(dev, name)
     ref, out = _both(dev, cfg, X, Y, M)
     sogp_regimes.compare(name, ref, out, X, Y, M)
+
+
+@pytest.mark.parametrize("slots", sogp_regimes.SLOT_SWEEP)
+@pytest.mark.parametrize("name", ["strict_d1", "strict_d3"])
+def test_strict_regimes_over_slot_counts(dev, name, slots):
+    """Partial warps and 1 to 4 slots per lane."""
+    cfg, X, Y, M = _inputs(dev, name, slots=slots)
+    ref, out = _both(dev, cfg, X, Y, M)
+    sogp_regimes.compare(name, ref, out, X, Y, M)
+
+
+def test_realistic_regime_at_32_slots(dev):
+    """Capacity churn at the bench's state size: deletions run through the
+    kernel's active-slot downdate."""
+    cfg, X, Y, M = _inputs(dev, "realistic", slots=32)
+    ref, out = _both(dev, cfg, X, Y, M)
+    sogp_regimes.compare("realistic", ref, out, X, Y, M)
+
+
+def test_nan_state_matches_plain(dev):
+    """A NaN in one patch's active C: the kernel takes its dense loop and
+    spreads the NaN as the plain version does."""
+    cfg, first, second = sogp_regimes.nan_case()
+    first, second = _on(dev, *first), _on(dev, *second)
+    kp = sogp_regimes.params(dev)
+    seeded = sogp_train.add_points_batch_plain(
+        kp, cfg, sparse_gp.init_batch(cfg, first[0].shape[0], device=dev),
+        *first)
+    ref, out = _both(dev, cfg, *second, init=sogp_regimes.poison(seeded))
+    sogp_regimes.compare("nan", ref, out, *second)
+
+
+def test_input_state_unchanged(dev):
+    """The kernel writes a new state and leaves its input as it was."""
+    cfg, X, Y, M = _inputs(dev, "realistic", slots=32)
+    kp = sogp_regimes.params(dev)
+    init = sogp_train.add_points_batch_plain(
+        kp, cfg, sparse_gp.init_batch(cfg, X.shape[0], device=dev),
+        X[:, :40], Y[:, :40], M[:, :40])
+    before = [a.clone() for a in init]
+    out = sogp_train.add_points_batch_cuda(kp, cfg, init, X, Y, M)
+    torch.cuda.synchronize()
+    for a, b in zip(before, init):
+        assert torch.equal(_bits(a), _bits(b))
+    assert not torch.equal(out.C, init.C)
+
+
+@pytest.mark.parametrize("dout", [1, 3])
+def test_bench_banks_match_plain(dev, bench, dout):
+    """The bench banks never reach capacity: the `bench` rule."""
+    ccfg, batch, (dkp, ckp) = bench
+    gpcfg, kp, Y = ((ccfg.depth_gp, dkp, batch.y) if dout == 1
+                    else (ccfg.rgb_gp, ckp, batch.rgb))
+    ref, out = _both(dev, gpcfg, batch.X, Y, batch.mask, kp=kp)
+    assert int(sparse_gp.size(ref).max()) < gpcfg.capacity
+    sogp_regimes.compare("bench", ref, out, batch.X, Y, batch.mask, kp=kp,
+                         s20=gpcfg.s20)
+
+
+def test_inline_division_is_ieee(dev):
+    """The kernel's inline division, per element and as the row's fast
+    paths with their fix-up, equals IEEE a / b bit for bit (NaN where
+    NaN) on edge cases and random operands."""
+    a, b = (torch.from_numpy(v).to(dev)
+            for v in sogp_regimes.division_cases())
+    ref = a / b
+    for q in sogp_train.inline_division(a, b):
+        nan = torch.isnan(ref)
+        assert torch.equal(nan, torch.isnan(q))
+        assert torch.equal(_bits(q[~nan]), _bits(ref[~nan]))
 
 
 def test_override_row_matches_static_config(dev):

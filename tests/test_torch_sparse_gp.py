@@ -2,8 +2,12 @@
 package: kernel primitives, prediction and sanitize at rtol 1e-5, and the
 four training regimes of tests/test_pallas_sogp.py against both JAX paths
 (the XLA scan and the Pallas kernel in interpret mode) by the regimes' own
-rules (gp_compressor_tpu_torch/testing/sogp_regimes.py). Inputs are
-numpy arrays from a seed, pinned to float32 on both sides."""
+rules (gp_compressor_tpu_torch/testing/sogp_regimes.py). Also the
+invariant the CUDA kernel's active-slot loops rest on (inactive slots stay
+exactly zero), the state with a NaN, and the kernel's launch geometry.
+Inputs are numpy arrays from a seed, pinned to float32 on both sides."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +45,14 @@ def _jcfg(cfg):
 def _to_port(st):
     return convert.state_from_numpy({k: np.asarray(v)
                                      for k, v in st._asdict().items()})
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_regime(name, pallas):
+    """The JAX state of a regime at its default size, as numpy arrays."""
+    cfg, X, Y, mask = sogp_regimes.regime(name)
+    st = _jax_state(cfg, X, Y, mask, pallas)
+    return {k: np.asarray(v) for k, v in st._asdict().items()}
 
 
 def _jax_state(cfg, X, Y, mask, pallas):
@@ -131,10 +143,84 @@ def test_sanitize_batch_matches_jax():
 @pytest.mark.parametrize("name", sogp_regimes.REGIMES)
 def test_training_regimes_match_jax(name, pallas):
     cfg, X, Y, mask = sogp_regimes.regime(name)
-    ref = _to_port(_jax_state(cfg, X, Y, mask, pallas))
+    ref = convert.state_from_numpy(_jax_regime(name, pallas))
     out = _port_state(cfg, X, Y, mask)
     sogp_regimes.compare(name, ref, out, torch.from_numpy(X),
                          torch.from_numpy(Y), torch.from_numpy(mask))
+
+
+@pytest.mark.parametrize("trainer", ["xla", "pallas", "port"])
+@pytest.mark.parametrize("name", sogp_regimes.REGIMES)
+def test_inactive_slots_stay_zero(name, trainer):
+    """bv, alpha and the rows and columns of C and Q of every inactive
+    slot are exactly 0.0 after training, in JAX's XLA scan, its Pallas
+    kernel (interpret mode) and the port's plain version: the invariant
+    that lets the CUDA kernel loop over the active slots only."""
+    if trainer == "port":
+        cfg, X, Y, mask = sogp_regimes.regime(name)
+        st = {k: v.numpy() for k, v in
+              _port_state(cfg, X, Y, mask)._asdict().items()}
+    else:
+        st = _jax_regime(name, trainer == "pallas")
+    off = ~st["active"]
+    assert off.any() and st["active"].any()
+    assert np.all(st["bv"][off] == 0.0)
+    assert np.all(st["alpha"][off] == 0.0)
+    for f in ("C", "Q"):
+        M = st[f]
+        assert np.all(M.transpose(0, 2, 1)[off] == 0.0), f"{f} columns"
+        assert np.all(M[off] == 0.0), f"{f} rows"
+
+
+@pytest.mark.parametrize("name,slots", [("strict_d1", 8), ("strict_d3", 128),
+                                        ("realistic", 32),
+                                        ("geometric", 32)])
+def test_regimes_at_other_slot_counts_match_jax(name, slots):
+    """The card checks the kernel at these state sizes; the regimes keep
+    their rules there (8 slots: capacity 7, so deletions run)."""
+    cfg, X, Y, mask = sogp_regimes.regime(name, slots=slots)
+    assert cfg.slots == slots
+    ref = _to_port(_jax_state(cfg, X, Y, mask, pallas=False))
+    out = _port_state(cfg, X, Y, mask)
+    sogp_regimes.compare(name, ref, out, torch.from_numpy(X),
+                         torch.from_numpy(Y), torch.from_numpy(mask))
+
+
+def test_nan_state_matches_jax():
+    """A NaN in one patch's active C spreads over that patch's C and alpha
+    alike in JAX's XLA scan and the port's plain version (the `nan` rule),
+    and the other patches keep the strict rule."""
+    cfg, first, second = sogp_regimes.nan_case()
+    st = sogp_regimes.poison(_port_state(cfg, *first))
+    jc = _jcfg(cfg)
+    jst = jsg.add_points_batch(
+        JKP, JNoise(s20=jnp.asarray(0.1, F32)), jc,
+        jsg.SOGPState(*[jnp.asarray(a.numpy()) for a in st]),
+        *[jnp.asarray(a) for a in second])
+    X, Y, mask = (torch.from_numpy(a) for a in second)
+    out = sogp_train.add_points_batch_cuda(TKP, cfg, st, X, Y, mask)
+    res = sogp_regimes.compare("nan", _to_port(jst), out, X, Y, mask)
+    assert res["nan_entries"] == cfg.slots ** 2
+    with pytest.raises(AssertionError):      # the rule sees a lost NaN
+        sogp_regimes.compare("nan", _to_port(jst), st, X, Y, mask)
+
+
+@pytest.mark.parametrize("dout", [1, 3])
+def test_launch_geometry(dout):
+    """Rows per lane, patches per block and shared bytes for every state
+    size the kernel takes; more than 128 slots, or none, are refused."""
+    for S in range(1, sogp_train.MAX_SLOTS + 1):
+        warps, rows, smem = sogp_train.launch_geometry(S, dout)
+        assert rows <= 4 and 32 * (rows - 1) < S <= 32 * rows
+        assert warps in (1, 2, 4)
+        assert smem == warps * 2 * S * (S | 1) * 4 <= 232_448
+        assert warps == 1 or smem <= 48 * 1024    # no opt-in with 2+ warps
+    assert sogp_train.launch_geometry(32, dout) == (4, 1, 33_792)
+    for S in (0, 129):
+        with pytest.raises(ValueError):
+            sogp_train.launch_geometry(S, dout)
+    with pytest.raises(ValueError):
+        sogp_train.launch_geometry(32, 2)
 
 
 @pytest.mark.parametrize("fault", [None, "gain", "dropped_bv", "swapped"])
@@ -228,6 +314,11 @@ def test_cpu_wrapper_takes_the_plain_version_and_checks_inputs():
     for u, v in zip(a, b):
         np.testing.assert_array_equal(u.numpy(), v.numpy())
     assert sogp_train.LAUNCHES == 0          # no kernel ran on the CPU
+    with pytest.raises(ValueError):          # the kernel needs CUDA tensors
+        sogp_train.launch(cfg, tsg.init_batch(cfg, 7), tsg.init_batch(cfg, 7),
+                          torch.from_numpy(X), torch.from_numpy(Y),
+                          torch.from_numpy(mask),
+                          sogp_train.hyper_row(TKP, cfg, "cpu"))
     with pytest.raises(NotImplementedError):
         tsg.add_points_batch(TKP, TNoise(torch.tensor(0.1)), cfg,
                              tsg.init_batch(cfg, 7), torch.from_numpy(X),
