@@ -26,7 +26,20 @@ Phases, each of which must pass (any failure exits non-zero):
                plain), beside its bound; then train_gp with its set-up;
   5. profile — host wall of the front end's steps, then one round trip
                under torch.profiler (device busy time, idle share, kernel
-               launches, host-side CUDA calls).
+               launches, host-side CUDA calls);
+  6. calibrated — compress_decompress_calibrated at the bench
+               configuration, cold (150 Adam steps, 4 starts) and warm
+               (40 steps from the cold theta, 1 start): walls, the
+               calibrated hyperparameters and RMSE against the JAX
+               package's CPU anchors, the stage split, the synchronising
+               CUDA calls of the MAP ascent; then the kernel against its
+               plain version at the calibrated bench banks (D=1 and D=3,
+               the calibrated row, the `calibrated` rule), its launch time,
+               mean active slots and deletions per patch;
+  7. registration — the full scan under a known small motion: rprop on
+               the calibrated map (median of 3 walls, steps/s, errors held
+               to the JAX anchors), the reference-constants row on the
+               headline map, and the split of one step.
 
 The last three lines of standard output are the kernels' JSON object, the
 card's `nvidia-smi` name and power limit, and the result object.
@@ -41,6 +54,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -52,6 +66,24 @@ RMSE_MAX = 0.025
 RMSE_JAX = 0.0208         # the JAX package's in-sample depth RMSE
 TIMED_RUNS = 3
 KERNEL_REPS = 20          # kernel launches per timed window
+# anchors of phases 6 and 7: the JAX package on the CPU in float32 on this
+# exact input and config (port_anchors.py, jax 0.9.0)
+CAL_ANCHORS = {           # (sigma_f^2, l^2, s20, in-sample RMSE m)
+    "cold": (1.0375130223110318e-3, 1.3576451456174254e-3,
+             4.3595468741841614e-4, 0.015567295253276825),
+    "warm": (1.0670083574950695e-3, 1.4202079037204385e-3,
+             4.385730717331171e-4, 0.013576843775808811)}
+# The calibrated RMSE guard of both runs: the warm anchor's. Cold and warm
+# reach the same mode, and at the calibrated values one patch whose
+# float32 training goes astray but stays inside sanitize's bounds moves a
+# single run's in-sample RMSE by more than 10%: the port, trained at the
+# cold anchor's own hyperparameters, gives ~0.0136 m, not that run's
+# 0.0156 m (phase 6 prints both routes there).
+CAL_RMSE_JAX = CAL_ANCHORS["warm"][3]
+REG_RPROP_FINAL_JAX = 1.937328343046829e-4   # m, 48 steps of at most 80
+REG_REF_FINAL_JAX = 0.014729603193700314     # m, 40 steps (max_steps)
+PERTURB_ANG = [0.004, -0.003, 0.005]         # bench.py:509-510
+PERTURB_T = [0.012, -0.009, 0.006]
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -122,29 +154,43 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def train_bound(cfg, X, mask, out) -> dict:
+def train_bound(cfg, X, mask, out, tally=None) -> dict:
     """The least time the card could take for one training launch: the
     larger of its bytes (each input read once, each output written once)
     over the HBM rate and its operations over the fp32 rate. Operations
-    are counted from this run's data: each valid row of a patch costs at
-    most what a row with the patch's final BV count a costs (no bench
-    patch reaches capacity, so counts only grow): 8a for k, 4a^2 for
-    C k and Q k, (4 + 5D)a for the sums and alpha, 7(a+1)^2 for the
-    rank-1 updates of C and Q, and ~40 for the scalars. `flops_dense` is
-    the same count over all S slots, as a loop over every slot does it."""
+    are counted from this run's data, per valid row that starts with a
+    BVs: 8a for k, 4a^2 for C k and Q k, (4 + 5D)a for the sums and alpha,
+    7(a+1)^2 for the rank-1 updates of C and Q, and ~40 for the scalars;
+    per capacity deletion, (D + 2)a for the scores and 7a^2 + 2Da for the
+    downdates of C, Q and alpha, at a = capacity + 1. tally: the plain
+    version's [B, 5] counts (sparse_gp.add_point), which give each
+    patch's capacity deletions and its rows' sums of a and a^2; without
+    it (the headline banks, where no patch reaches capacity) each row is
+    charged the patch's final BV count, at most one above what the row
+    needs. `flops_dense` charges every row a = S, as a loop over every
+    slot does."""
     B, P, _ = X.shape
     S, D = cfg.slots, cfg.dout
     state = B * S * (2 * 4 + D * 4 + 2 * S * 4 + 1)
     nbytes = B * P * (2 * 4 + D * 4 + 1) + 2 * state + 7 * 4
     rows = mask.sum(1).double()
+    a_del = cfg.capacity + 1
+    n_del = 0.0 if tally is None else float(tally[:, 1].double().sum())
+    del_flops = n_del * ((D + 2) * a_del + 7 * a_del ** 2 + 2 * D * a_del)
 
-    def count(a):
-        return float((rows * (8 * a + 4 * a ** 2 + (4 + 5 * D) * a
-                              + 7 * (a + 1) ** 2 + 40)).sum())
+    def count(s1, s2):
+        # sums over rows of a and a^2 -> the rows' operations
+        return float((8 * s1 + 4 * s2 + (4 + 5 * D) * s1
+                      + 7 * (s2 + 2 * s1 + rows) + 40 * rows).sum()) + del_flops
 
-    flops = count(out.active.sum(1).double())
+    if tally is None:
+        a = out.active.sum(1).double()
+        flops = count(rows * a, rows * a ** 2)
+    else:
+        flops = count(tally[:, 3].double(), tally[:, 4].double())
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
-    return {"bytes": nbytes, "flops": flops, "flops_dense": count(S),
+    return {"bytes": nbytes, "flops": flops,
+            "flops_dense": count(rows * S, rows * S ** 2),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -170,22 +216,15 @@ def profile_phase(pts, cols, valid, ccfg, best_wall, kind, card):
 
     pc = ccfg.patch
     steps = {}
-
-    def step(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        steps[name] = time.perf_counter() - t0
-        return r
-
-    grid = step("build_grid", lambda: voxel.build_grid(
-        pts, valid, pc.res, pc.max_patches, pc.max_cells))
-    M, cnt = step("sphere_moments", lambda: patches.sphere_moments(
-        grid, pts, valid, pc))
-    step("rotation_from_moment_batch", lambda: rotation.rotation_from_moment_batch(
-        M, cnt, pc.min_points_for_rotation))
-    step("project", lambda: compressor.project(pts, cols, valid, ccfg))
+    grid = synced(lambda: voxel.build_grid(
+        pts, valid, pc.res, pc.max_patches, pc.max_cells), steps, "build_grid")
+    M, cnt = synced(lambda: patches.sphere_moments(grid, pts, valid, pc),
+                    steps, "sphere_moments")
+    synced(lambda: rotation.rotation_from_moment_batch(
+        M, cnt, pc.min_points_for_rotation), steps,
+        "rotation_from_moment_batch")
+    synced(lambda: compressor.project(pts, cols, valid, ccfg), steps,
+           "project")
     say(f"[5] front-end steps (s, host wall) on {kind} ({card}): "
         f"{json.dumps(steps)}")
 
@@ -225,6 +264,297 @@ def profile_phase(pts, cols, valid, ccfg, best_wall, kind, card):
     }
     check(len(kernels) > 0, "the profiler saw no device kernel")
     say(f"[5] profiled round trip on {kind} ({card}): {json.dumps(res)}")
+
+
+def synced(fn, out: dict, name: str):
+    """fn() between two synchronises; its host wall (s) goes to out[name]."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    out[name] = time.perf_counter() - t0
+    return r
+
+
+def count_syncs(fn):
+    """(fn(), number of synchronising CUDA calls it made, {"file:line":
+    count} of the Python lines that made them), counted by torch's sync
+    debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return r, sum(where.values()), where
+
+
+def calibrated_phase(pts, cols, valid, ccfg, dev, kind, card):
+    """Phase 6: the calibrated round trip, cold and warm, with its guards,
+    its stage split, the host syncs of the MAP ascent, and the training
+    kernel against its plain version at the calibrated bench banks.
+    Returns (cold CompressedCloud, its depth RBFParams, its s20)."""
+    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+    from gp_compressor_tpu_torch.inference import hmc
+    from gp_compressor_tpu_torch.models import sparse_gp
+    from gp_compressor_tpu_torch.ops.kernels import RBFParams
+    from gp_compressor_tpu_torch.testing import sogp_regimes
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    runs = {"cold": dict(calib_steps=150, calib_lr=0.1, calib_starts=4),
+            "warm": dict(calib_steps=40, calib_lr=0.05, calib_starts=1)}
+    G = ccfg.patch.sz ** 2
+    result = {}
+    theta = None
+    for name, kw in runs.items():
+        if name == "warm":
+            kw = dict(kw, theta_init=theta)
+
+        def round_trip():
+            r = compressor.compress_decompress_calibrated(
+                pts, cols, valid, ccfg, calib_patches=32, calib_points=64,
+                **kw)
+            torch.cuda.synchronize()
+            return r
+
+        round_trip()                                       # warm-up
+        sogp_train.LAUNCHES = 0
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            comp, kp, s20, out = round_trip()
+            walls.append(time.perf_counter() - t0)
+        launches = sogp_train.LAUNCHES
+        check(launches == 4, f"[6] {name}: kernel launches {launches}, "
+                             "expected 2 per round trip")
+        hp = [float(kp.sigmaf_sq), float(kp.l_sq), float(s20)]
+        rmse = float(compressor.reconstruction_rmse(comp, ccfg, depth_kp=kp,
+                                                    depth_s20=s20))
+        hist = torch.bincount(sparse_gp.size(comp.depth_gp),
+                              minlength=ccfg.depth_gp.slots + 1).tolist()
+        world, colors, pvalid = out[0], out[1], out[2]
+        check(world.shape == (ccfg.patch.max_patches * G, 3)
+              and bool(torch.isfinite(world[pvalid]).all())
+              and bool(torch.isfinite(colors).all()),
+              f"[6] {name}: decompress output shape or non-finite values")
+        best = min(walls)
+        say(f"[6] calibrated {name} on {kind} ({card}): wall {walls} s, best "
+            f"{best:.4f} s = {N_POINTS / best:.1f} points/s; sigmaf_sq "
+            f"{hp[0]:.6g} l_sq {hp[1]:.6g} s20 {hp[2]:.6g}; rmse {rmse:.6f} m;"
+            f" kernel launches {launches} in 2 runs; depth BV-count "
+            f"histogram (0..{ccfg.depth_gp.slots}): {hist}")
+        anchor = CAL_ANCHORS[name]
+        for label, v, a in zip(("sigmaf_sq", "l_sq", "s20"), hp, anchor):
+            check(math.isfinite(v) and abs(math.log(v / a)) <= 0.1,
+                  f"[6] {name}: {label} {v} not within 0.1 of the JAX "
+                  f"anchor {a} in log space")
+        check(abs(rmse - CAL_RMSE_JAX) <= 0.05 * CAL_RMSE_JAX,
+              f"[6] {name}: rmse {rmse} not within 5% of the JAX anchor "
+              f"{CAL_RMSE_JAX}")
+        result[name] = (comp, kp, s20)
+        if name == "cold":
+            theta = torch.log(torch.stack([kp.sigmaf_sq, kp.l_sq, s20]))
+
+    # stage split of the cold round trip, synchronised between stages
+    cold = runs["cold"]
+    st = {}
+    batch = synced(lambda: compressor.project(pts, cols, valid, ccfg), st,
+                   "project")
+    logpost, theta0 = synced(lambda: compressor._calib_logpost(
+        batch, ccfg, 32, 64, torch.float32), st, "subsample")
+    ascent = lambda: hmc.map_estimate_multi(
+        logpost, theta0, steps=cold["calib_steps"], lr=cold["calib_lr"],
+        n_starts=cold["calib_starts"])
+    theta_c, _ = synced(ascent, st, "map_ascent")
+    sf, l2, s20 = torch.exp(theta_c).unbind()
+    kp = RBFParams(sigmaf_sq=sf, l_sq=l2)
+    eps = ccfg.depth_gp.eps_tol * sf / ccfg.depth_gp.sigmaf_sq
+    _, ckp = compressor.default_params(ccfg, dev)
+    dstates = synced(lambda: compressor.train_gp(
+        batch, ccfg.depth_gp, kp, batch.y, s20=s20, eps_tol=eps), st,
+        "depth_train")
+    cstates = synced(lambda: compressor.train_gp(
+        batch, ccfg.rgb_gp, ckp, batch.rgb), st, "rgb_train")
+    dstates, cstates, _, _ = synced(lambda: compressor.sanitize(
+        batch, ccfg, dstates, cstates, kp, ckp, s20, full_probes=True), st,
+        "sanitize")
+    synced(lambda: compressor.decompress(
+        compressor.CompressedCloud(batch, dstates, cstates), ccfg,
+        depth_kp=kp, depth_s20=s20), st, "decompress")
+    say(f"[6] cold stages (s) on {kind} ({card}): {json.dumps(st)}")
+    _, n_sync, where = count_syncs(ascent)
+    say(f"[6] synchronising CUDA calls inside the cold MAP ascent "
+        f"({cold['calib_steps']} steps, {cold['calib_starts']} starts): "
+        f"{n_sync}, from {json.dumps(where)}")
+
+    # the training and its RMSE at the JAX cold anchor's own values, by
+    # the kernel and by the plain version (see CAL_RMSE_JAX)
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    a_sf, a_l2, a_s20, a_rmse = CAL_ANCHORS["cold"]
+    a_kp, a_s20 = RBFParams(sigmaf_sq=t(a_sf), l_sq=t(a_l2)), t(a_s20)
+    at_anchor = {}
+    for route, use in (("kernel", True), ("plain", False)):
+        c = compressor.train(batch, ccfg, depth_kp=a_kp, use_kernel=use,
+                             depth_s20=a_s20, depth_eps=ccfg.depth_gp.eps_tol
+                             * a_kp.sigmaf_sq / ccfg.depth_gp.sigmaf_sq,
+                             full_probes=True)
+        at_anchor[route] = float(compressor.reconstruction_rmse(
+            c, ccfg, depth_kp=a_kp, depth_s20=a_s20))
+    say(f"[6] in-sample RMSE (m) when trained at the JAX cold anchor's "
+        f"sigmaf_sq, l_sq, s20: {json.dumps(at_anchor)}; the anchor run's "
+        f"own {a_rmse}")
+
+    # the kernel against its plain version at the calibrated bench banks,
+    # both fed the calibrated row (device data), depth D=1 and RGB D=3
+    for gpcfg, Y in ((ccfg.depth_gp, batch.y), (ccfg.rgb_gp, batch.rgb)):
+        B = batch.mask.shape[0]
+        init = sparse_gp.init_batch(gpcfg, B, device=dev)
+        out = sogp_train.add_points_batch_cuda(kp, gpcfg, init, batch.X, Y,
+                                               batch.mask, s20=s20,
+                                               eps_tol=eps)
+        tally = torch.zeros((B, 5), dtype=torch.int64, device=dev)
+        ref = sogp_train.add_points_batch_plain(kp, gpcfg, init, batch.X, Y,
+                                                batch.mask, s20=s20,
+                                                eps_tol=eps, tally=tally)
+        torch.cuda.synchronize()
+        res = sogp_regimes.compare("calibrated", ref, out, batch.X, Y,
+                                   batch.mask, kp=kp, s20=s20)
+        used = batch.mask.any(1)
+        act = float(out.active.sum(1)[used].double().mean())
+        adds, dels, gdels = tally[used, :3].double().mean(0).tolist()
+        bound = train_bound(gpcfg, batch.X, batch.mask, out, tally=tally)
+        row = sogp_train.hyper_row(kp, gpcfg, dev, s20=s20, eps_tol=eps)
+        scratch = sparse_gp.SOGPState(*[torch.empty_like(a) for a in init])
+        kern = lambda: sogp_train.launch(gpcfg, init, scratch, batch.X, Y,
+                                         batch.mask, row)
+        plain = lambda: sogp_train.add_points_batch_plain(
+            kp, gpcfg, init, batch.X, Y, batch.mask, s20=s20, eps_tol=eps)
+        kern()
+        p1, k1, k2, p2 = (event_ms(plain, 1), event_ms(kern, KERNEL_REPS),
+                          event_ms(kern, KERNEL_REPS), event_ms(plain, 1))
+        ms = (k1 + k2) / 2
+        row_bvs = float(tally[:, 3].sum()) / float(batch.mask.sum())
+        rows_max = int(batch.mask.sum(1).max())
+        say(f"[6] calibrated bench banks D={gpcfg.dout} on {kind} ({card}): "
+            f"{json.dumps(res)}; mean active slots {act:.3f}, per patch "
+            f"{adds:.3f} additions, {dels:.3f} capacity deletions, "
+            f"{gdels:.4f} geometric deletions (patches with points), "
+            f"{row_bvs:.3f} BVs at the start of a row (mean over rows); "
+            f"kernel {k1:.4f}/{k2:.4f} ms per launch, plain {p1:.4f}/"
+            f"{p2:.4f} ms; bound {bound['bound_ms'] * 1e3:.2f} us by "
+            f"{bound['bound_by']} ({bound['bytes']} B, {bound['flops']:.4g} "
+            f"FLOP needed, {bound['flops_dense']:.4g} dense), share of bound "
+            f"{bound['bound_ms'] / ms:.4f}; longest patch {rows_max} valid "
+            f"rows, {ms * 1e3 / rows_max:.3f} us per row of it")
+    return result["cold"]
+
+
+def registration_phase(pts, cols, valid, ccfg, comp_cal, kp_cal, s20_cal,
+                       comp_ref, dev, kind, card):
+    """Phase 7: registration of the perturbed full scan (bench.py:488-572):
+    rprop on the calibrated map with its guards, the reference-constants
+    row on the headline map, and the split of one step."""
+    from gp_compressor_tpu_torch.config import RegistrationConfig
+    from gp_compressor_tpu_torch.geometry import transforms, voxel
+    from gp_compressor_tpu_torch.workloads import compressor, registration
+
+    ang = torch.tensor(PERTURB_ANG, device=dev)
+    t_true = torch.tensor(PERTURB_T, device=dev)
+    R_true = transforms.euler_xyz(ang)
+    moved = transforms.apply(pts, R_true, t_true)
+    err0 = float(torch.linalg.norm(moved - pts, dim=1).mean())
+    rcfg = RegistrationConfig(max_steps=80, step_mode="rprop")
+
+    def run(comp, rc, **kw):
+        st, out = registration.register(comp, moved, cols, valid, ccfg, rc,
+                                        **kw)
+        torch.cuda.synchronize()
+        return st, out
+
+    def summary(st, out):
+        terr, rerr = registration.registration_error(st.R_cloud, st.t_cloud,
+                                                     R_true, t_true)
+        err1 = float(torch.linalg.norm(out - pts, dim=1).mean())
+        return {"steps": int(st.step_nbr), "initial_mean_err_m": err0,
+                "final_mean_err_m": err1, "removed": 1.0 - err1 / err0,
+                "trans_err_m": float(terr), "rot_err_rad": float(rerr)}
+
+    cal = dict(depth_kp=kp_cal, depth_s20=s20_cal)
+    run(comp_cal, rcfg, **cal)                              # warm-up
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        st, out = run(comp_cal, rcfg, **cal)
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[1]
+    res = summary(st, out)
+    (st2, _), n_sync, where = count_syncs(lambda: run(comp_cal, rcfg, **cal))
+    say(f"[7] registration rprop, calibrated map, on {kind} ({card}): walls "
+        f"{walls} s, median {wall:.4f} s, {res['steps'] / wall:.2f} steps/s;"
+        f" {json.dumps(res)}; synchronising CUDA calls in one register call "
+        f"of {int(st2.step_nbr)} steps: {n_sync}, from {json.dumps(where)}")
+    check(res["steps"] < rcfg.max_steps,
+          f"[7] rprop did not converge in {rcfg.max_steps} steps")
+    check(res["final_mean_err_m"] <= min(2 * REG_RPROP_FINAL_JAX, 1e-3),
+          f"[7] final mean error {res['final_mean_err_m']} above "
+          f"min(2 x {REG_RPROP_FINAL_JAX}, 1 mm)")
+    check(res["removed"] >= 0.95, f"[7] removed only {res['removed']:.4f} "
+                                  "of the injected error")
+
+    rcfg_ref = RegistrationConfig(max_steps=40, step=0.005,
+                                  grad_tol_step_ref=0.1)
+    times = {}
+    st, out = synced(lambda: run(comp_ref, rcfg_ref), times, "wall")
+    res_ref = summary(st, out)
+    say(f"[7] registration reference constants, headline map, on {kind} "
+        f"({card}): wall {times['wall']:.4f} s; {json.dumps(res_ref)}")
+    check(abs(res_ref["final_mean_err_m"] - REG_REF_FINAL_JAX)
+          <= 0.1 * REG_REF_FINAL_JAX,
+          f"[7] reference-constants final error {res_ref['final_mean_err_m']}"
+          f" not within 10% of the JAX anchor {REG_REF_FINAL_JAX}")
+
+    # one rprop step, split: claims / bank / gradients / update
+    batch = comp_cal.patch
+    B = batch.rotations.shape[0]
+    P = ccfg.patch.max_points_per_patch
+    centers = voxel.voxel_centers(batch.grid)[:B]
+    _, ckp = compressor.default_params(ccfg, dev)
+    sp = {}
+    tables = synced(lambda: registration._map_claim_tables(comp_cal), sp,
+                    "claim_tables")
+    claim, _, claimed = synced(lambda: registration._claim_to_map(
+        comp_cal, moved, valid, ccfg, tables=tables), sp, "claims")
+
+    def bank():
+        Wb, Cb, Mb = registration._bank_points(claim, moved, cols, claimed,
+                                               B, P)
+        return Wb, torch.where(Mb[..., None],
+                               Cb - batch.rgb_means[:, None, :], 0.0), Mb
+
+    Wb, Cb, Mb = synced(bank, sp, "bank")
+    delta, _, _, _ = synced(lambda: registration._bank_step(
+        comp_cal, ccfg, rcfg, kp_cal, ckp, Wb, Cb, Mb, centers,
+        depth_s20=s20_cal), sp, "gradients")
+
+    def update():
+        eta = torch.full((6,), rcfg.rprop_eta0, device=dev)
+        move = torch.sign(delta) * eta
+        R = transforms.euler_xyz(move[3:])
+        return (transforms.apply(moved, R, move[:3]),
+                transforms.apply(Wb, R, move[:3]), bool(torch.all(
+                    eta < rcfg.rprop_tol)))
+
+    synced(update, sp, "update")
+    say(f"[7] one step (s, host wall, synchronised between parts; claim "
+        f"tables are built once per register call) on {kind} ({card}): "
+        f"{json.dumps(sp)}")
 
 
 def main() -> int:
@@ -401,25 +731,17 @@ def main() -> int:
 
     # per-stage split, synchronised between stages
     stages = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        stages[name] = time.perf_counter() - t0
-        return r
-
-    batch = stage("project", lambda: compressor.project(pts, cols, valid, ccfg))
-    dstates = stage("depth_train", lambda: compressor.train_gp(
-        batch, ccfg.depth_gp, dkp, batch.y))
-    cstates = stage("rgb_train", lambda: compressor.train_gp(
-        batch, ccfg.rgb_gp, ckp, batch.rgb))
-    dstates, cstates, n_bad_d, n_bad_c = stage(
-        "sanitize", lambda: compressor.sanitize(
-            batch, ccfg, dstates, cstates, dkp, ckp, ccfg.depth_gp.s20))
+    batch = synced(lambda: compressor.project(pts, cols, valid, ccfg),
+                   stages, "project")
+    dstates = synced(lambda: compressor.train_gp(
+        batch, ccfg.depth_gp, dkp, batch.y), stages, "depth_train")
+    cstates = synced(lambda: compressor.train_gp(
+        batch, ccfg.rgb_gp, ckp, batch.rgb), stages, "rgb_train")
+    dstates, cstates, n_bad_d, n_bad_c = synced(
+        lambda: compressor.sanitize(batch, ccfg, dstates, cstates, dkp, ckp,
+                                    ccfg.depth_gp.s20), stages, "sanitize")
     comp = compressor.CompressedCloud(batch, dstates, cstates)
-    stage("decompress", lambda: compressor.decompress(comp, ccfg))
+    synced(lambda: compressor.decompress(comp, ccfg), stages, "decompress")
     say(f"[3] stages (s) on {kind} ({card}): {json.dumps(stages)}; "
         f"sanitize resets depth {int(n_bad_d)} rgb {int(n_bad_c)}")
 
@@ -458,6 +780,14 @@ def main() -> int:
 
     # ---- 5. where the round trip's time goes
     profile_phase(pts, cols, valid, ccfg, best, kind, card)
+
+    # ---- 6. the calibrated round trip, and the kernel in its regime
+    comp_cal, kp_cal, s20_cal = calibrated_phase(pts, cols, valid, ccfg, dev,
+                                                 kind, card)
+
+    # ---- 7. registration against the calibrated and the headline maps
+    registration_phase(pts, cols, valid, ccfg, comp_cal, kp_cal, s20_cal,
+                       comp, dev, kind, card)
 
     # one D=1 and one D=3 launch per round trip: ms and plain_ms are their sum
     kernels = [{

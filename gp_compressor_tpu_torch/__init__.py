@@ -7,7 +7,11 @@ JAX package, so each function's counterpart sits at the same place:
   * `geometry/`   voxel binning, plane fits, patch banks (torch ops)
   * `models/`     the batched Csató–Opper sparse online GP (plain torch)
   * `cuda_kernels/` + `csrc/`  the fused SOGP training kernel in CUDA C++
-  * `workloads/compressor.py`  compress -> decompress round trip
+  * `ops/linalg_f32.py`, `models/exact_gp.py`, `inference/hmc.py`
+                  the exact-GP marginal posterior and its MAP ascent
+  * `workloads/compressor.py`  compress -> decompress round trip, plain
+                  and calibrated
+  * `workloads/registration.py`  scan-to-map registration
 
 The package imports torch and numpy only — never jax, and nothing from
 `gp_compressor_tpu` (whose `config` imports `jax.numpy`).
@@ -21,6 +25,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
 

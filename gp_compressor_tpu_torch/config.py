@@ -2,13 +2,14 @@
 
 Field for field the dataclasses of `gp_compressor_tpu.config` (names,
 defaults and meaning; the comments there explain each constant). Only
-`dtype` differs: it is a `torch.dtype`. The calibration, registration,
-mapping, HMC, SMC and mesh configs arrive with the slices that use them.
+`dtype` differs: it is a `torch.dtype`. The mapping, SMC and mesh configs
+arrive with the slices that use them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -82,6 +83,40 @@ def rgb_ksvd_config(dict_size: int = 600, words_max: int = 20) -> KSVDConfig:
     """RGB-pipeline K-SVD constants, scaled to 0-255 colour residuals."""
     return KSVDConfig(dict_size=dict_size, words_max=words_max,
                       proj_error=5e4, stop_diff=1e3)
+
+
+@dataclasses.dataclass(frozen=True)
+class RegistrationConfig:
+    """GP-gradient scan-to-map registration (reference defaults step 0.1,
+    300 steps, grad_tol 0.1; the JAX config documents each option)."""
+
+    step: float = 1e-1
+    max_steps: int = 300
+    min_steps: int = 10
+    grad_tol: float = 0.1        # convergence: |dt| < tol and |dr| < tol
+    grad_tol_step_ref: Optional[float] = None  # tol *= step / step_ref
+    color_blend: float = 1.0     # "alpha" blend: 1 => depth-only gradient
+    blend_mode: str = "alpha"    # "alpha" or "likelihood" cross-weighting
+    max_motion: Optional[float] = None  # per-step cap on |t| and |omega|
+    reclaim_every: int = 4       # re-run the scan->map claims every k steps
+    step_mode: str = "fixed"     # "fixed" or "rprop" (iRprop- per axis)
+    rprop_eta0: float = 1e-3
+    rprop_eta_min: float = 1e-6
+    rprop_eta_max: float = 4e-3
+    rprop_tol: float = 2e-5      # rprop stops when every eta < this
+    bank_points: Optional[int] = None  # registration bank width override
+
+
+@dataclasses.dataclass(frozen=True)
+class HMCConfig:
+    """NUTS/HMC over kernel hyperparameters."""
+
+    num_chains: int = 8
+    num_warmup: int = 200
+    num_samples: int = 200
+    max_tree_depth: int = 8
+    target_accept: float = 0.8
+    init_step_size: float = 0.1
 
 
 @dataclasses.dataclass(frozen=True)

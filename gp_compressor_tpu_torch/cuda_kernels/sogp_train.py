@@ -146,13 +146,15 @@ def hyper_row(kp: RBFParams, cfg: GPConfig, device, s20=None, eps_tol=None,
 def add_points_batch_plain(kp: RBFParams, cfg: GPConfig, states: SOGPState,
                            X: torch.Tensor, Y: torch.Tensor,
                            mask: torch.Tensor, s20=None, eps_tol=None,
-                           geom=None) -> SOGPState:
+                           geom=None, tally=None) -> SOGPState:
     """The plain PyTorch version of the kernel: the same function through
-    the unfused per-point loop, fed the same hyperparameter row."""
+    the unfused per-point loop, fed the same hyperparameter row. tally:
+    optional [B, 5] int64 per-patch counts of the training's work (see
+    sparse_gp.add_point)."""
     row = hyper_row(kp, cfg, X.device, s20=s20, eps_tol=eps_tol, geom=geom)
     return sparse_gp.add_points_batch(
         RBFParams(row[0], row[1]), GaussianNoise(row[2]), cfg, states, X, Y,
-        mask, eps_tol=row[3], geom=(row[4], row[5], row[6]))
+        mask, eps_tol=row[3], geom=(row[4], row[5], row[6]), tally=tally)
 
 
 def _check(name, t, shape, dtype, device):

@@ -11,8 +11,10 @@ The port of the main-path part of `gp_compressor_tpu.geometry.patches`:
 
 Scatter indices are never left out of range: what JAX drops with
 `mode='drop'` goes to an extra dump row here, which is sliced off. The
-`shuffle` bank order and the raster (K-SVD) patches are not ported yet
-and raise NotImplementedError.
+`shuffle` bank order takes its random source explicitly: a
+`torch.Generator`, or the [B, P] 32-bit values themselves (the tests feed
+the bits JAX drew). The raster (K-SVD) patches are not ported yet and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -96,14 +98,86 @@ def sort_by_claim(claim: torch.Tensor, claimed: torch.Tensor, cols: tuple,
     return tuple(c[order] for c in cols), starts.to(torch.int32), segs
 
 
-def bank_rank(loc_claim: torch.Tensor, order: str):
+def bank_rank(loc_claim: torch.Tensor, order: str, claim=None, claimed=None,
+              n_segments: int = 0):
     """Secondary sort key implementing PatchConfig.bank_order (None for
-    'native', which keeps claim-sorted point order)."""
-    if order == "native":
+    'shuffle' and 'native', which need no rank key)."""
+    if order in ("shuffle", "native"):
         return None
+    d2 = loc_claim[:, 1] ** 2 + loc_claim[:, 2] ** 2
     if order == "center_out":
-        return loc_claim[:, 1] ** 2 + loc_claim[:, 2] ** 2
-    raise NotImplementedError(f"bank_order {order!r} is not ported")
+        return d2
+    if order == "edge_in":
+        return -d2
+    if order == "far_center":
+        # each patch's farthest point first, then ascending d2
+        seg = torch.where(claimed, claim, n_segments).long()
+        hi = torch.full((n_segments + 1,), -torch.inf, dtype=d2.dtype,
+                        device=d2.device).scatter_reduce(
+            0, seg, torch.where(claimed, d2, -torch.inf), "amax")
+        is_far = claimed & (d2 >= hi[torch.where(claimed, claim, 0).long()])
+        return torch.where(is_far, -1.0, d2)
+    raise ValueError(f"unknown bank_order {order!r}")
+
+
+def draw_shuffle_bits(B: int, P: int, device=None,
+                      generator: torch.Generator = None) -> torch.Tensor:
+    """[B, P] uniform 32-bit values as int64 in [0, 2^32), the random
+    source of the `shuffle` bank order (int64 because sorting uint32 is
+    not dependable in torch)."""
+    return torch.randint(0, 1 << 32, (B, P), generator=generator,
+                         device=device, dtype=torch.int64)
+
+
+def _bank_perm(bits: torch.Tensor) -> torch.Tensor:
+    """Per-patch uniform permutation of [0, P): a stable argsort of each
+    row of random bits (Fisher-Yates equivalent)."""
+    return torch.argsort(bits, dim=1, stable=True).to(torch.int32)
+
+
+def _bank_ranks(B: int, P: int, device, shuffle_bits=None) -> torch.Tensor:
+    """[B, P] int32 rank inside its segment that slot (b, p) reads: p, or
+    the per-patch permutation of shuffle_bits."""
+    if shuffle_bits is not None:
+        return _bank_perm(shuffle_bits)
+    return torch.arange(P, dtype=torch.int32, device=device).expand(B, P)
+
+
+def bank_windows(starts: torch.Tensor, B: int, P: int, shuffle_bits=None):
+    """[B, P] positions into claim-sorted arrays + validity + counts.
+
+    Slot (b, p) reads sorted row starts[b] + rk(b, p) with rk = p, or a
+    per-patch uniform permutation of [0, P) when shuffle_bits [B, P] is
+    given — the same kept/dropped set either way (rank < P)."""
+    counts = starts[1:] - starts[:-1]                      # [B]
+    rk = _bank_ranks(B, P, starts.device, shuffle_bits)
+    valid = rk < torch.clamp(counts, max=P)[:, None]
+    N = torch.clamp(starts[-1], min=1)
+    pos = torch.minimum(starts[:B, None] + rk, N - 1)
+    return pos, valid, counts
+
+
+def gather_bank_indices(claim: torch.Tensor, claimed: torch.Tensor,
+                        n_segments: int, P: int, shuffle_bits=None,
+                        counts=None):
+    """Bank building in gather form: (src [B, P] int32 indices into the
+    point axis, valid [B, P]). Slot (b, p) draws the point of stable
+    claim-order rank rk(b, p) inside segment b, rk as in bank_windows."""
+    N = claim.shape[0]
+    B = n_segments
+    dev = claim.device
+    segs_u = torch.where(claimed, claim, B)
+    order = torch.argsort(segs_u, stable=True).to(torch.int32)
+    segs = segs_u[order.long()].to(torch.int32)
+    offset = torch.searchsorted(
+        segs, torch.arange(B, dtype=torch.int32, device=dev)).to(torch.int32)
+    if counts is None:
+        counts = _segment_sum(claimed.to(torch.int32),
+                              torch.where(claimed, claim, B), B + 1)[:B]
+    rk = _bank_ranks(B, P, dev, shuffle_bits)
+    valid = rk < torch.clamp(counts.to(torch.int32), max=P)[:, None]
+    src = order[torch.clamp(offset[:, None] + rk, 0, N - 1).long()]
+    return src, valid
 
 
 def grid_cell(uv: torch.Tensor, res, sz: int) -> torch.Tensor:
@@ -239,13 +313,18 @@ def claim_points(points: torch.Tensor, valid: torch.Tensor, cfg: PatchConfig):
 
 
 def build_patches(points: torch.Tensor, colors: torch.Tensor,
-                  valid: torch.Tensor, cfg: PatchConfig) -> PatchBatch:
+                  valid: torch.Tensor, cfg: PatchConfig,
+                  generator: torch.Generator = None,
+                  shuffle_bits: torch.Tensor = None) -> PatchBatch:
     """points: [N, 3], colors: [N, 3] (0..255 floats), valid: [N] bool.
 
-    Banks are filled in the scatter form: each patch's claim-sorted window
-    (ordered by cfg.bank_order's rank key) lands in its bank row by row."""
-    if cfg.bank_order == "shuffle":
-        raise NotImplementedError("bank_order 'shuffle' is not ported")
+    Deterministic bank orders fill the banks in the scatter form: each
+    patch's claim-sorted window (ordered by cfg.bank_order's rank key)
+    lands in its bank row by row. With cfg.bank_order == "shuffle" and a
+    random source (`generator`, or `shuffle_bits` [B, P] int64 in
+    [0, 2^32)), each patch's points land in a uniformly random order
+    through the gather form; without one the banks keep the native order,
+    as the JAX package's build_patches does without a key."""
     B, P, sz = cfg.max_patches, cfg.max_points_per_patch, cfg.sz
     dt = points.dtype
     dev = points.device
@@ -254,7 +333,12 @@ def build_patches(points: torch.Tensor, colors: torch.Tensor,
         points, valid, cfg)
     res = grid.res
 
-    rank = bank_rank(loc_claim, cfg.bank_order)
+    rank = bank_rank(loc_claim, cfg.bank_order, claim=claim,
+                     claimed=claimed, n_segments=B)
+    if cfg.bank_order != "shuffle":
+        shuffle_bits = None
+    elif shuffle_bits is None and generator is not None:
+        shuffle_bits = draw_shuffle_bits(B, P, dev, generator)
     (u_s, v_s, d_s, rgb_s), starts, segs = sort_by_claim(
         claim, claimed, (loc_claim[:, 1], loc_claim[:, 2], loc_claim[:, 0],
                          colors), B, rank=rank)
@@ -283,6 +367,20 @@ def build_patches(points: torch.Tensor, colors: torch.Tensor,
     W = torch.zeros(B * sz * sz + 1, dtype=torch.bool, device=dev)
     W[wseg.long()] = True
     W = W[:B * sz * sz].reshape(B, sz * sz)
+
+    if shuffle_bits is not None:
+        # gather form: slot (b, p) reads the window row of rank rk(b, p)
+        pos, mb, _ = bank_windows(starts, B, P, shuffle_bits=shuffle_bits)
+        pos = pos.long()
+        Xb = torch.where(mb[..., None],
+                         torch.stack([u_s[pos], v_s[pos]], dim=-1), 0.0)
+        yb = torch.where(mb, d_s[pos] - mn[:, None], 0.0)[..., None]
+        cb = torch.where(mb[..., None], rgb_s[pos] - c_mn[:, None, :], 0.0)
+        return PatchBatch(
+            grid=grid, rotations=R, means=means, rgb_means=c_mn, W=W,
+            X=Xb, y=yb, rgb=cb, mask=mb, counts=counts_i,
+            claims=torch.where(claimed, claim, -1).to(torch.int32),
+            n_leaves=grid.n_leaves)
 
     # banks: ONE [N, 6] scatter from the sorted payload (row i of segment
     # b lands at slot (b, i - starts[b])); rows past P and unclaimed rows

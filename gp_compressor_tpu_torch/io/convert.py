@@ -20,6 +20,8 @@ from gp_compressor_tpu_torch.geometry.patches import PatchBatch
 from gp_compressor_tpu_torch.geometry.voxel import VoxelGrid
 from gp_compressor_tpu_torch.models.sparse_gp import SOGPState
 from gp_compressor_tpu_torch.workloads.compressor import CompressedCloud
+from gp_compressor_tpu_torch.workloads.registration import (ClaimTables,
+                                                           RegistrationState)
 
 
 def _t(a, device):
@@ -54,6 +56,24 @@ def _config(cls, d):
     if "dtype" in kw:
         kw["dtype"] = getattr(torch, np.dtype(kw["dtype"]).name)
     return cls(**kw)
+
+
+def registration_config_from_dict(d) -> config_mod.RegistrationConfig:
+    """RegistrationConfig from `dataclasses.asdict` of the JAX config."""
+    return _config(config_mod.RegistrationConfig, d)
+
+
+def hmc_config_from_dict(d) -> config_mod.HMCConfig:
+    """HMCConfig from `dataclasses.asdict` of the JAX config."""
+    return _config(config_mod.HMCConfig, d)
+
+
+def registration_state_from_numpy(d, device=None) -> RegistrationState:
+    return _tuple(RegistrationState, d, device)
+
+
+def claim_tables_from_numpy(d, device=None) -> ClaimTables:
+    return _tuple(ClaimTables, d, device)
 
 
 def compressor_config_from_dict(d) -> config_mod.CompressorConfig:

@@ -126,7 +126,8 @@ def _geometric_scores(state: SOGPState) -> torch.Tensor:
 
 def add_point(kp: RBFParams, noise: GaussianNoise, cfg: GPConfig,
               state: SOGPState, x: torch.Tensor, y: torch.Tensor,
-              valid: torch.Tensor, eps_tol=None, geom=None) -> SOGPState:
+              valid: torch.Tensor, eps_tol=None, geom=None,
+              tally: Optional[torch.Tensor] = None) -> SOGPState:
     """One Csató–Opper update on every patch of the bank.
 
     x: [B, dim], y: [B, dout], valid: [B] bool (an invalid row is a no-op).
@@ -134,10 +135,18 @@ def add_point(kp: RBFParams, noise: GaussianNoise, cfg: GPConfig,
     eps_tol: None (cfg.eps_tol), a 0-dim tensor, or a [B] tensor.
     geom: None (thresholds from cfg), or the resolved geometric admission
     thresholds (kappa, max_bv, gamma_min) as 0-dim tensors — the entries
-    4-6 of the training kernel's hyperparameter row."""
+    4-6 of the training kernel's hyperparameter row.
+    tally: optional [B, 5] int64 counts, incremented in place per patch:
+    basis vectors added, capacity deletions, geometric deletions, and the
+    sums over valid rows of the BV count a row starts with and of its
+    square (what the row's work scales with)."""
     dt = state.C.dtype
     S = state.slots
     act = state.active.to(dt)
+    if tally is not None:
+        n_in = size(state) * valid
+        tally[:, 3] += n_in
+        tally[:, 4] += n_in * n_in
 
     kstar = kp.sigmaf_sq
     k = kernels.gram(kp, x[:, None, :], state.bv)[:, 0, :] * act    # [B, S]
@@ -193,12 +202,17 @@ def add_point(kp: RBFParams, noise: GaussianNoise, cfg: GPConfig,
     over = size(new) > cfg.capacity
     new = _select(over, _delete_bv(new, torch.argmin(_capacity_scores(new),
                                                      dim=-1)), new)
+    if tally is not None:
+        tally[:, 0] += ~use_sparse & valid
+        tally[:, 1] += over & valid
 
     # bounded geometric deletions
     for _ in range(cfg.max_geometric_deletes):
         g = _geometric_scores(new)
         pred = (torch.amin(g, dim=-1) < cfg.geom_tol) & (size(new) > 1)
         new = _select(pred, _delete_bv(new, torch.argmin(g, dim=-1)), new)
+        if tally is not None:
+            tally[:, 2] += pred & valid
 
     return _select(valid, new, state)
 
@@ -206,14 +220,14 @@ def add_point(kp: RBFParams, noise: GaussianNoise, cfg: GPConfig,
 def add_points_batch(kp: RBFParams, noise: GaussianNoise, cfg: GPConfig,
                      states: SOGPState, X: torch.Tensor, Y: torch.Tensor,
                      mask: torch.Tensor, keys=None, eps_tol=None,
-                     geom=None) -> SOGPState:
+                     geom=None, tally=None) -> SOGPState:
     """Insert each patch's points in bank order: X [B, n, dim],
     Y [B, n, dout], mask [B, n].
 
     eps_tol: None, a scalar (0-dim tensor or float), or [B, n] per-point
     thresholds. keys: the in-path shuffle of the JAX package is not ported
     (the banks already carry their insertion order), so only None is taken.
-    geom: see add_point."""
+    geom, tally: see add_point."""
     if keys is not None:
         raise NotImplementedError("in-path shuffle is not ported; pass "
                                   "banks in their insertion order")
@@ -221,7 +235,7 @@ def add_points_batch(kp: RBFParams, noise: GaussianNoise, cfg: GPConfig,
     for p in range(X.shape[1]):
         e = eps_tol[:, p] if per_point else eps_tol
         states = add_point(kp, noise, cfg, states, X[:, p], Y[:, p],
-                           mask[:, p], eps_tol=e, geom=geom)
+                           mask[:, p], eps_tol=e, geom=geom, tally=tally)
     return states
 
 

@@ -36,3 +36,22 @@ def gram(params: RBFParams, X: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
 def kdiag(params: RBFParams, X: torch.Tensor) -> torch.Tensor:
     """k(x, x) for each row — constant sigmaf_sq for the RBF kernel."""
     return params.sigmaf_sq.to(X.dtype).expand(X.shape[:-1])
+
+
+def gram_dx(params: RBFParams, X: torch.Tensor,
+            Z: torch.Tensor) -> torch.Tensor:
+    """d k(x_i, z_j) / d x_i -> [..., n, m, d]:
+    -(sigmaf_sq / l_sq) (x - z) exp(-|x - z|^2 / (2 l_sq))."""
+    diff = X[..., :, None, :] - Z[..., None, :, :]
+    e = torch.exp(-0.5 / params.l_sq * torch.sum(diff * diff, dim=-1))
+    return (-params.sigmaf_sq / params.l_sq) * diff * e[..., None]
+
+
+def gram_dtheta(params: RBFParams, X: torch.Tensor,
+                Z: torch.Tensor) -> torch.Tensor:
+    """d k(x_i, z_j) / d (sigmaf_sq, l_sq) -> [..., n, m, 2]:
+    (e, sigmaf_sq r2 / (2 l_sq^2) e) with e = exp(-r2 / (2 l_sq))."""
+    r2 = sqdist(X, Z)
+    e = torch.exp(-0.5 / params.l_sq * r2)
+    return torch.stack([e, params.sigmaf_sq * 0.5 / (params.l_sq ** 2)
+                        * r2 * e], dim=-1)

@@ -7,12 +7,21 @@ regular sz x sz grid per patch and rotating back to world coordinates.
 
 Training goes through the fused CUDA kernel (`cuda_kernels.sogp_train`)
 when the banks are CUDA tensors, and through its plain PyTorch version
-when they are CPU tensors. The banks carry their insertion order (a
-deterministic `PatchConfig.bank_order`), so no key or shuffle is taken.
+when they are CPU tensors. The banks carry their insertion order: a
+deterministic `PatchConfig.bank_order`, or the `shuffle` order drawn at
+bank time from an explicit `torch.Generator` (seed 0 when none is given).
+
+The calibrated round trip (`compress_decompress_calibrated`) fits the
+depth GP's (sigma_f^2, l^2, s20) by multi-start MAP on a subsample of the
+banks and trains with the result; the calibrated values stay device
+tensors from the ascent to the kernel's hyperparameter row, so a new
+calibration reads nothing back to the host.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -35,17 +44,40 @@ class CompressedCloud(NamedTuple):
 
 def default_params(cfg: CompressorConfig,
                    device=None) -> Tuple[RBFParams, RBFParams]:
-    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
-    return (RBFParams(sigmaf_sq=t(cfg.depth_gp.sigmaf_sq),
-                      l_sq=t(cfg.depth_gp.l_sq)),
-            RBFParams(sigmaf_sq=t(cfg.rgb_gp.sigmaf_sq),
-                      l_sq=t(cfg.rgb_gp.l_sq)))
+    """The configs' kernel constants as 0-dim tensors of each GP's dtype."""
+    def kp(g):
+        t = lambda v: torch.tensor(v, dtype=g.dtype, device=device)
+        return RBFParams(sigmaf_sq=t(g.sigmaf_sq), l_sq=t(g.l_sq))
+
+    return kp(cfg.depth_gp), kp(cfg.rgb_gp)
 
 
 def project(points: torch.Tensor, colors: torch.Tensor, valid: torch.Tensor,
-            cfg: CompressorConfig) -> patches_mod.PatchBatch:
-    """project_cloud equivalent (src/gp_compressor.cpp:177-249)."""
-    return patches_mod.build_patches(points, colors, valid, cfg.patch)
+            cfg: CompressorConfig, generator: torch.Generator = None,
+            shuffle_bits: torch.Tensor = None) -> patches_mod.PatchBatch:
+    """project_cloud equivalent (src/gp_compressor.cpp:177-249).
+    generator / shuffle_bits: the `shuffle` bank order's random source
+    (see patches.build_patches); without one the banks keep native order."""
+    return patches_mod.build_patches(points, colors, valid, cfg.patch,
+                                     generator=generator,
+                                     shuffle_bits=shuffle_bits)
+
+
+def _shuffle_source(points, cfg: CompressorConfig, generator, shuffle_bits):
+    """The generator the compress entry points draw the `shuffle` order
+    from: the caller's, or one seeded 0 (None where no draw happens)."""
+    if cfg.patch.bank_order != "shuffle" or shuffle_bits is not None \
+            or generator is not None:
+        return generator
+    return torch.Generator(device=points.device).manual_seed(0)
+
+
+def bank_permutations(B: int, P: int, device=None,
+                      generator: torch.Generator = None):
+    """(depth, rgb) per-patch uniform permutations [B, P] of the banks'
+    rows, for training banks that were not shuffled at bank time."""
+    return tuple(patches_mod._bank_perm(patches_mod.draw_shuffle_bits(
+        B, P, device, generator)) for _ in range(2))
 
 
 def train_gp(batch: patches_mod.PatchBatch, gpcfg: GPConfig, kp: RBFParams,
@@ -95,21 +127,36 @@ def train(batch: patches_mod.PatchBatch, cfg: CompressorConfig,
           rgb_kp: Optional[RBFParams] = None,
           use_kernel: Optional[bool] = None,
           depth_s20=None, depth_eps=None, full_probes: bool = False,
-          geom=None) -> CompressedCloud:
+          geom=None, perm=None) -> CompressedCloud:
     """train_processes equivalent (src/gp_compressor.cpp:121-175): feed each
     patch's banked points into its depth GP and RGB field GP, then sanitize.
 
     depth_s20 / depth_eps: overrides of the depth GP's noise floor and
     novelty threshold (data, not constants: they ride the kernel's
     hyperparameter row). geom: (dmin, max_bv, gamma_min_rel) override of
-    the geometric novelty mode. use_kernel: see train_gp."""
+    the geometric novelty mode. use_kernel: see train_gp. perm: optional
+    (depth, rgb) per-patch permutations [B, P] of the bank rows, the
+    insertion order of banks that were not shuffled at bank time (see
+    bank_permutations); the returned cloud keeps the unpermuted banks."""
     dkp, ckp = default_params(cfg, batch.X.device)
     depth_kp = depth_kp if depth_kp is not None else dkp
     rgb_kp = rgb_kp if rgb_kp is not None else ckp
     d_s20 = cfg.depth_gp.s20 if depth_s20 is None else depth_s20
-    dstates = train_gp(batch, cfg.depth_gp, depth_kp, batch.y, use_kernel,
+    dbatch = cbatch = batch
+    if perm is not None:
+        def take(a, p):
+            p = p.long()
+            return torch.take_along_dim(
+                a, p.reshape(p.shape + (1,) * (a.ndim - 2)), dim=1)
+
+        pd, pc = perm
+        dbatch = batch._replace(X=take(batch.X, pd), y=take(batch.y, pd),
+                                mask=take(batch.mask, pd))
+        cbatch = batch._replace(X=take(batch.X, pc), rgb=take(batch.rgb, pc),
+                                mask=take(batch.mask, pc))
+    dstates = train_gp(dbatch, cfg.depth_gp, depth_kp, dbatch.y, use_kernel,
                        s20=depth_s20, eps_tol=depth_eps, geom=geom)
-    cstates = train_gp(batch, cfg.rgb_gp, rgb_kp, batch.rgb, use_kernel,
+    cstates = train_gp(cbatch, cfg.rgb_gp, rgb_kp, cbatch.rgb, use_kernel,
                        geom=geom)
     dstates, cstates, _, _ = sanitize(batch, cfg, dstates, cstates, depth_kp,
                                       rgb_kp, d_s20, full_probes)
@@ -171,16 +218,158 @@ def reconstruction_rmse(comp: CompressedCloud, cfg: CompressorConfig,
 
 
 def compress(points, colors, valid, cfg: CompressorConfig,
-             use_kernel: Optional[bool] = None, geom=None) -> CompressedCloud:
-    """Full save_compressed pipeline: project, then train."""
-    batch = project(points, colors, valid, cfg)
+             use_kernel: Optional[bool] = None, geom=None,
+             generator: torch.Generator = None,
+             shuffle_bits: torch.Tensor = None) -> CompressedCloud:
+    """Full save_compressed pipeline: project, then train. The `shuffle`
+    bank order draws from `generator` (seed 0 when None) unless
+    shuffle_bits gives the draw."""
+    generator = _shuffle_source(points, cfg, generator, shuffle_bits)
+    batch = project(points, colors, valid, cfg, generator=generator,
+                    shuffle_bits=shuffle_bits)
     return train(batch, cfg, use_kernel=use_kernel, geom=geom)
 
 
 def compress_decompress(points, colors, valid, cfg: CompressorConfig,
-                        use_kernel: Optional[bool] = None, geom=None):
+                        use_kernel: Optional[bool] = None, geom=None,
+                        generator: torch.Generator = None,
+                        shuffle_bits: torch.Tensor = None):
     """save_compressed + load_compressed: the production round trip.
     Returns (CompressedCloud, decompress outputs)."""
     comp = compress(points, colors, valid, cfg, use_kernel=use_kernel,
-                    geom=geom)
+                    geom=geom, generator=generator, shuffle_bits=shuffle_bits)
     return comp, decompress(comp, cfg)
+
+
+def calib_subsample(batch: patches_mod.PatchBatch, n_patches: int,
+                    n_points: int):
+    """A dense, spatially stratified calibration subsample of the banks:
+    the n_patches patches with the most valid points (ties to the lower
+    index, as lax.top_k), each one's valid points compacted to the front
+    and strided (idx_j = floor(j * count / n)) when it has more than n, so
+    that any bank order covers the patch's span.
+    Returns (X [n_patches, n, 2], y [n_patches, n], mask [n_patches, n])."""
+    counts = torch.sum(batch.mask, dim=1)
+    top = torch.argsort(counts, descending=True, stable=True)[:n_patches]
+    Xb = batch.X[top]
+    yb = batch.y[top, :, 0]
+    mb = batch.mask[top]
+    order = torch.argsort((~mb).to(torch.uint8), dim=1, stable=True)
+    cnt = torch.sum(mb, dim=1).to(torch.int32)
+    j = torch.arange(n_points, dtype=torch.int32, device=mb.device)
+    # stride only when the patch has more than n points; otherwise take
+    # the compacted prefix as it is
+    strided = torch.minimum(
+        torch.div(j[None, :] * torch.clamp(cnt, min=1)[:, None], n_points,
+                  rounding_mode='floor'),
+        torch.clamp(cnt - 1, min=0)[:, None])
+    pos = torch.where(cnt[:, None] > n_points, strided,
+                      torch.clamp(j[None, :], max=order.shape[1] - 1))
+    sel = torch.take_along_dim(order, pos.long(), dim=1)
+    X = torch.take_along_dim(Xb, sel[:, :, None], dim=1)
+    y = torch.take_along_dim(yb, sel, dim=1)
+    m = torch.take_along_dim(mb, sel, dim=1) & (j[None, :] < cnt[:, None])
+    return X, y, m
+
+
+def _calib_logpost(batch, cfg: CompressorConfig, calib_patches, calib_points,
+                   calib_dtype):
+    from gp_compressor_tpu_torch.inference import hmc
+
+    B = min(calib_patches, batch.X.shape[0])
+    n = min(calib_points, batch.X.shape[1])
+    Xc, yc, mc = calib_subsample(batch, B, n)
+    logpost = hmc.make_patch_logpost(Xc.to(calib_dtype), yc.to(calib_dtype),
+                                     mc.to(calib_dtype))
+    g = cfg.depth_gp
+    theta0 = torch.tensor([math.log(g.sigmaf_sq), math.log(g.l_sq),
+                           math.log(g.s20)], dtype=calib_dtype,
+                          device=batch.X.device)
+    return logpost, theta0
+
+
+def compress_decompress_calibrated(points, colors, valid,
+                                   cfg: CompressorConfig,
+                                   use_kernel: Optional[bool] = None,
+                                   calib_patches: int = 32,
+                                   calib_points: int = 64,
+                                   calib_steps: int = 150,
+                                   calib_lr: float = 0.1,
+                                   calib_starts: int = 4,
+                                   theta_init=None,
+                                   calib_dtype: torch.dtype = torch.float32,
+                                   generator: torch.Generator = None,
+                                   shuffle_bits: torch.Tensor = None):
+    """The calibrated round trip: project -> multi-start MAP of the exact-GP
+    marginal posterior over (sigma_f^2, l^2, s20) on a bank subsample ->
+    sparse-GP training with the calibrated values -> grid decompression.
+
+    The calibrated values stay device tensors: they reach the training
+    kernel through its hyperparameter row, and sanitize and decompress as
+    tensors, so nothing is read back between stages. theta_init: optional
+    warm start (the previous cloud's log theta) — pair with calib_steps ~40
+    and calib_starts=1. calib_dtype: the dtype of the ascent (float32 on
+    the card; the tests pass float64).
+
+    Returns (CompressedCloud, depth RBFParams, s20 0-dim tensor,
+    decompress outputs)."""
+    from gp_compressor_tpu_torch.inference import hmc
+
+    generator = _shuffle_source(points, cfg, generator, shuffle_bits)
+    batch = project(points, colors, valid, cfg, generator=generator,
+                    shuffle_bits=shuffle_bits)
+    logpost, theta0 = _calib_logpost(batch, cfg, calib_patches, calib_points,
+                                     calib_dtype)
+    theta, _ = hmc.map_estimate_multi(logpost, theta0, steps=calib_steps,
+                                      lr=calib_lr, n_starts=calib_starts,
+                                      theta_init=theta_init)
+    sf, l2, s20 = torch.exp(theta).to(batch.X.dtype).unbind()
+    depth_kp = RBFParams(sigmaf_sq=sf, l_sq=l2)
+    # keep the relative novelty floor: eps_tol's natural scale is sigmaf_sq
+    eps_cal = cfg.depth_gp.eps_tol * sf / cfg.depth_gp.sigmaf_sq
+    comp = train(batch, cfg, depth_kp=depth_kp, use_kernel=use_kernel,
+                 depth_s20=s20, depth_eps=eps_cal, full_probes=True)
+    out = decompress(comp, cfg, depth_kp=depth_kp, depth_s20=s20)
+    return comp, depth_kp, s20, out
+
+
+def compress_calibrated(points, colors, valid, cfg: CompressorConfig,
+                        use_kernel: Optional[bool] = None, method: str = "map",
+                        calib_patches: int = 32, calib_points: int = 64,
+                        calib_steps: int = 400, calib_lr: float = 0.1,
+                        calib_dtype: torch.dtype = torch.float32,
+                        generator: torch.Generator = None, perm=None):
+    """The staged calibrated compress: MAP over the exact-GP marginal of a
+    bank subsample, then training with a config built from the calibrated
+    values (read to the host here, by design). The banks are built in
+    native order and each bank is permuted before training, by `perm`
+    ((depth, rgb) [B, P], see train) or by permutations drawn from
+    `generator` (seed 0 when None). method "hmc" arrives with the
+    Bayesian slice. Returns (CompressedCloud, depth RBFParams, calibrated
+    s20, calibrated config)."""
+    from gp_compressor_tpu_torch.inference import hmc
+
+    if method != "map":
+        raise NotImplementedError(f"calibration method {method!r} is not "
+                                  "ported")
+    batch = project(points, colors, valid, cfg)
+    logpost, theta0 = _calib_logpost(batch, cfg, calib_patches, calib_points,
+                                     calib_dtype)
+    theta, _ = hmc.map_estimate(logpost, theta0, steps=calib_steps,
+                                lr=calib_lr)
+    sf, l2, s20 = torch.exp(theta).unbind()
+    dt = batch.X.dtype
+    depth_kp = RBFParams(sigmaf_sq=sf.to(dt), l_sq=l2.to(dt))
+    # the novelty threshold is an absolute gamma bound whose natural scale
+    # is sigmaf_sq: rescale it to keep the same relative novelty floor
+    eps_cal = cfg.depth_gp.eps_tol * float(sf) / cfg.depth_gp.sigmaf_sq
+    cal_cfg = dataclasses.replace(cfg, depth_gp=dataclasses.replace(
+        cfg.depth_gp, sigmaf_sq=float(sf), l_sq=float(l2), s20=float(s20),
+        eps_tol=eps_cal))
+    if perm is None:
+        if generator is None:
+            generator = torch.Generator(device=points.device).manual_seed(0)
+        perm = bank_permutations(*batch.mask.shape, batch.X.device, generator)
+    comp = train(batch, cal_cfg, depth_kp=depth_kp, use_kernel=use_kernel,
+                 perm=perm)
+    return comp, depth_kp, float(s20), cal_cfg

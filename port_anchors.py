@@ -1,0 +1,135 @@
+"""The JAX package's CPU anchors that `chip_smoke.py` holds the port to.
+
+Runs the JAX package (the reference) on the CPU in float32, x64 off, on
+the exact input and configuration `chip_smoke.py` drives the port with:
+the 300k-point `room_cloud(seed=0)` at the bench configuration
+(`bench.py:168-195`). It prints one JSON object with
+
+  * the headline round trip: n_leaves, banked points, in-sample RMSE;
+  * the calibrated round trip (`bench.py:325-357`), cold (150 steps, lr
+    0.1, 4 starts) and warm (theta from the cold run, 40 steps, lr 0.05,
+    1 start): sigma_f^2, l^2, s20, in-sample RMSE, BV-count histogram;
+  * registration (`bench.py:488-572`): rprop with 80 steps on the
+    calibrated map, and the reference-constants row (fixed step 0.005,
+    grad_tol_step_ref 0.1, 40 steps) on the headline map: steps, initial
+    and final mean point error, translation and rotation error.
+
+    JAX_PLATFORMS=cpu python3 port_anchors.py
+
+It needs the JAX package and a few GiB of host memory, and takes some
+minutes on the CPU; the port's machine does not run it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+jax.config.update("jax_enable_x64", False)
+
+from gp_compressor_tpu import config as c  # noqa: E402
+from gp_compressor_tpu.config import RegistrationConfig  # noqa: E402
+from gp_compressor_tpu.geometry import transforms  # noqa: E402
+from gp_compressor_tpu.models import sparse_gp  # noqa: E402
+from gp_compressor_tpu.utils import synthetic  # noqa: E402
+from gp_compressor_tpu.workloads import compressor, registration  # noqa: E402
+
+N_POINTS = 300_000
+ANG = [0.004, -0.003, 0.005]
+T_TRUE = [0.012, -0.009, 0.006]
+
+
+def bench_config():
+    return c.CompressorConfig(
+        patch=c.PatchConfig(res=0.15, sz=20, max_patches=2048,
+                            max_points_per_patch=256,
+                            approx_sphere_moments=True,
+                            bank_order="center_out"),
+        depth_gp=c.GPConfig(capacity=30, slots=32, eps_tol=2.0),
+        rgb_gp=dataclasses.replace(c.rgb_gp_config(slots=32, capacity=30),
+                                   eps_tol=2.0))
+
+
+def hist(state):
+    return np.bincount(np.asarray(sparse_gp.size(state)),
+                       minlength=33).tolist()
+
+
+def main():
+    t_start = time.time()
+    cfg = bench_config()
+    pts_np, cols_np = synthetic.room_cloud(n=N_POINTS, seed=0)
+    pts = jnp.asarray(pts_np, jnp.float32)
+    cols = jnp.asarray(cols_np, jnp.float32)
+    valid = jnp.ones(N_POINTS, bool)
+    out = {}
+
+    comp, _ = compressor.compress_decompress(pts, cols, valid, cfg,
+                                             jax.random.key(0))
+    out["headline"] = {
+        "n_leaves": int(comp.patch.n_leaves),
+        "banked": int(jnp.sum(comp.patch.mask)),
+        "rmse": float(compressor.reconstruction_rmse(comp, cfg)),
+        "depth_bv_hist": hist(comp.depth_gp)}
+    print(json.dumps(out["headline"]), flush=True)
+
+    comp_c, kpc, s20c, _ = compressor.compress_decompress_calibrated(
+        pts, cols, valid, cfg, jax.random.key(0), calib_patches=32,
+        calib_points=64, calib_steps=150, calib_lr=0.1, calib_starts=4)
+    out["cold"] = {
+        "sigmaf_sq": float(kpc.sigmaf_sq), "l_sq": float(kpc.l_sq),
+        "s20": float(s20c),
+        "rmse": float(compressor.reconstruction_rmse(
+            comp_c, cfg, depth_kp=kpc, depth_s20=s20c)),
+        "depth_bv_hist": hist(comp_c.depth_gp),
+        "rgb_bv_hist": hist(comp_c.rgb_gp)}
+    print(json.dumps(out["cold"]), flush=True)
+    theta = jnp.log(jnp.stack([kpc.sigmaf_sq, kpc.l_sq, s20c]))
+    comp_w, kpw, s20w, _ = compressor.compress_decompress_calibrated(
+        pts, cols, valid, cfg, jax.random.key(9), calib_patches=32,
+        calib_points=64, calib_steps=40, calib_lr=0.05, calib_starts=1,
+        theta_init=theta)
+    out["warm"] = {
+        "sigmaf_sq": float(kpw.sigmaf_sq), "l_sq": float(kpw.l_sq),
+        "s20": float(s20w),
+        "rmse": float(compressor.reconstruction_rmse(
+            comp_w, cfg, depth_kp=kpw, depth_s20=s20w)),
+        "depth_bv_hist": hist(comp_w.depth_gp)}
+    print(json.dumps(out["warm"]), flush=True)
+
+    ang = jnp.asarray(ANG, jnp.float32)
+    t_true = jnp.asarray(T_TRUE, jnp.float32)
+    R_true = transforms.euler_xyz(ang)
+    moved = transforms.apply(pts, R_true, t_true)
+    err0 = float(jnp.mean(jnp.linalg.norm(moved - pts, axis=1)))
+    for name, m, rcfg, kw in (
+            ("rprop", comp_c, RegistrationConfig(max_steps=80,
+                                                 step_mode="rprop"),
+             dict(depth_kp=kpc, depth_s20=s20c)),
+            ("ref_constants", comp, RegistrationConfig(
+                max_steps=40, step=0.005, grad_tol_step_ref=0.1), {})):
+        st, reg = registration.register(m, moved, cols, valid, cfg, rcfg,
+                                        **kw)
+        terr, rerr = registration.registration_error(
+            st.R_cloud, st.t_cloud, R_true, t_true)
+        out[name] = {
+            "steps": int(st.step_nbr), "initial_mean_err": err0,
+            "final_mean_err": float(jnp.mean(jnp.linalg.norm(reg - pts,
+                                                             axis=1))),
+            "trans_err": float(terr), "rot_err": float(rerr)}
+        print(json.dumps({name: out[name]}), flush=True)
+    out["seconds"] = time.time() - t_start
+    out["jax"] = jax.__version__
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

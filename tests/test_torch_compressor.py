@@ -128,13 +128,19 @@ def test_port_imports_no_jax():
             "import gp_compressor_tpu_torch.io.convert\n"
             "import gp_compressor_tpu_torch.testing.sogp_regimes\n"
             "import gp_compressor_tpu_torch.utils.synthetic\n"
+            "import gp_compressor_tpu_torch.geometry.transforms\n"
+            "import gp_compressor_tpu_torch.ops.linalg_f32\n"
+            "import gp_compressor_tpu_torch.models.exact_gp\n"
+            "import gp_compressor_tpu_torch.inference.hmc\n"
+            "import gp_compressor_tpu_torch.workloads.registration\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'gp_compressor_tpu.')) or m == "
             "'gp_compressor_tpu']\n"
             "assert not bad, bad\n"
             "import torch\n"
             "assert not torch.backends.cuda.matmul.allow_tf32\n"
-            "assert not torch.backends.cudnn.allow_tf32\n")
+            "assert not torch.backends.cudnn.allow_tf32\n"
+            "assert torch.get_float32_matmul_precision() == 'highest'\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -31,7 +31,8 @@ def _assert_same_fields(j, t):
 
 @pytest.mark.parametrize("make", ["GPConfig", "PatchConfig", "KSVDConfig",
                                   "CompressorConfig", "rgb_gp_config",
-                                  "rgb_ksvd_config"])
+                                  "rgb_ksvd_config", "RegistrationConfig",
+                                  "HMCConfig"])
 def test_config_defaults_match_jax(make):
     _assert_same_fields(getattr(jcfg, make)(), getattr(tcfg, make)())
 
@@ -52,6 +53,15 @@ def test_config_converts_from_jax_fields():
     got = convert.compressor_config_from_dict(dataclasses.asdict(mk(jcfg)))
     assert got == mk(tcfg)
     _assert_same_fields(mk(jcfg), got)
+    # the registration and HMC configs, with options off their defaults
+    kw = dict(step_mode="rprop", max_steps=80, max_motion=0.004,
+              grad_tol_step_ref=0.1, bank_points=48)
+    got = convert.registration_config_from_dict(
+        dataclasses.asdict(jcfg.RegistrationConfig(**kw)))
+    assert got == tcfg.RegistrationConfig(**kw)
+    got = convert.hmc_config_from_dict(
+        dataclasses.asdict(jcfg.HMCConfig(num_chains=2, num_warmup=40)))
+    assert got == tcfg.HMCConfig(num_chains=2, num_warmup=40)
 
 
 def test_gp_config_rejects_too_few_slots():

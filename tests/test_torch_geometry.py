@@ -221,11 +221,15 @@ def test_prediction_grid_and_reproject_match_jax():
 
 
 def test_unported_front_end_paths_raise():
+    """Only the raster (K-SVD) patches are left unported: every bank order
+    builds (tests/test_torch_bank_order.py holds them to JAX)."""
     pts, cols, valid = _cloud()
-    for order in ("shuffle", "edge_in"):
+    for order in ("shuffle", "edge_in", "far_center"):
         cfg = TPatchConfig(**dict(KW, bank_order=order))
-        with pytest.raises(NotImplementedError):
-            tpatches.build_patches(_t(pts), _t(cols), _t(valid), cfg)
+        tpatches.build_patches(_t(pts), _t(cols), _t(valid), cfg)
+    with pytest.raises(ValueError):
+        tpatches.build_patches(_t(pts), _t(cols), _t(valid),
+                               TPatchConfig(**dict(KW, bank_order="spiral")))
     with pytest.raises(NotImplementedError):
         tpatches.build_raster_patches(_t(pts), _t(cols), _t(valid),
                                       TPatchConfig(**KW))

@@ -1,9 +1,10 @@
 """Card-only tests: the fused SOGP training kernel against its plain
 PyTorch version, on the card, for the four training regimes of
 tests/test_pallas_sogp.py, the strict ones over state sizes of 8 to 128
-slots, the realistic one at 32 slots, a state with a NaN and the bench
-banks (rules in gp_compressor_tpu_torch/testing/sogp_regimes.py), and the
-kernel's inline division against IEEE division.
+slots, the realistic one at 32 slots, a state with a NaN, the bench
+banks and small banks at the calibrated hyperparameters (rules in
+gp_compressor_tpu_torch/testing/sogp_regimes.py), and the kernel's inline
+division against IEEE division.
 
 This file imports no JAX. Run it on a machine with a CUDA card:
 
@@ -132,6 +133,20 @@ def test_bench_banks_match_plain(dev, bench, dout):
     assert int(sparse_gp.size(ref).max()) < gpcfg.capacity
     sogp_regimes.compare("bench", ref, out, batch.X, Y, batch.mask, kp=kp,
                          s20=gpcfg.s20)
+
+
+@pytest.mark.parametrize("dout", [1, 3])
+def test_calibrated_regime_matches_plain(dev, dout):
+    """At the calibrated hyperparameters patches fill to capacity 30 and
+    delete on most rows: the `calibrated` rule."""
+    cfg, *arrays = sogp_regimes.calibrated_case(dout)
+    X, Y, M = _on(dev, *arrays)
+    kp = sogp_regimes.calibrated_params(dev)
+    ref, out = _both(dev, cfg, X, Y, M, kp=kp, s20=sogp_regimes.CAL_S20,
+                     eps_tol=sogp_regimes.CAL_EPS)
+    assert float(out.active.sum(1).double().mean()) > 0.95 * cfg.capacity
+    sogp_regimes.compare("calibrated", ref, out, X, Y, M, kp=kp,
+                         s20=sogp_regimes.CAL_S20)
 
 
 def test_inline_division_is_ieee(dev):
