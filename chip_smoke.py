@@ -39,7 +39,17 @@ Phases, each of which must pass (any failure exits non-zero):
   7. registration — the full scan under a known small motion: rprop on
                the calibrated map (median of 3 walls, steps/s, errors held
                to the JAX anchors), the reference-constants row on the
-               headline map, and the split of one step.
+               headline map, and the split of one step;
+  8. mapping — the mapping stream at the JAX package's bench row
+               (bench.py:575-688): calibration on scan 0 held to the JAX
+               anchor, then the seed scan and 1 warm-up + 3 timed
+               add_clouds of 4 scans at the anchor's hyperparameters
+               (scans/s, map chamfer RMSE, patch count, drops, held to the
+               JAX anchors), the kernel against its plain version on the
+               first stream insert's main banks (non-empty input states,
+               the `calibrated` rule), the stage split of one insert, the
+               synchronising calls and kernel launches per scan, and the
+               occupancy channel on the final map.
 
 The last three lines of standard output are the kernels' JSON object, the
 card's `nvidia-smi` name and power limit, and the result object.
@@ -84,6 +94,16 @@ REG_RPROP_FINAL_JAX = 1.937328343046829e-4   # m, 48 steps of at most 80
 REG_REF_FINAL_JAX = 0.014729603193700314     # m, 40 steps (max_steps)
 PERTURB_ANG = [0.004, -0.003, 0.005]         # bench.py:509-510
 PERTURB_T = [0.012, -0.009, 0.006]
+# anchors of phase 8: the JAX package's mapping row on the CPU in float32
+# (port_anchors.py mapping, jax 0.9.0): the calibration on scan 0, then
+# the stream at those values (seed + add_clouds of 4 scans)
+MAP_CAL_JAX = (3.253220347687602e-4, 5.610331520438194e-2,
+               4.368717782199383e-4)             # sigma_f^2, l^2, s20
+MAP_STEPS_JAX = 32                               # the carve's walk bound
+MAP_PATCHES_JAX = 1681
+MAP_RMSE_JAX = 0.02251934293019489               # m, one-sided chamfer
+MAP_RMSE_MAX = 0.025
+MAP_SCANS, MAP_SCAN_POINTS = 4, 150_000
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -210,7 +230,6 @@ def interval_union_us(spans) -> float:
 
 def profile_phase(pts, cols, valid, ccfg, best_wall, kind, card):
     """Front-end step walls, then one profiled round trip."""
-    from torch.profiler import ProfilerActivity, profile
     from gp_compressor_tpu_torch.geometry import patches, rotation, voxel
     from gp_compressor_tpu_torch.workloads import compressor
 
@@ -228,11 +247,24 @@ def profile_phase(pts, cols, valid, ccfg, best_wall, kind, card):
     say(f"[5] front-end steps (s, host wall) on {kind} ({card}): "
         f"{json.dumps(steps)}")
 
+    res = profile_summary(
+        lambda: compressor.compress_decompress(pts, cols, valid, ccfg),
+        best_wall)
+    say(f"[5] profiled round trip on {kind} ({card}): {json.dumps(res)}")
+
+
+def profile_summary(fn, best_wall) -> dict:
+    """fn() once under torch.profiler: wall, device busy time (the union
+    of device intervals), idle shares against that wall and against
+    best_wall (an unprofiled run's), device kernels and copies, host-side
+    CUDA calls, and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        compressor.compress_decompress(pts, cols, valid, ccfg)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
@@ -263,7 +295,7 @@ def profile_phase(pts, cols, valid, ccfg, best_wall, kind, card):
         "top_kernels_ms": [[n[:80], c, us / 1e3] for n, (c, us) in top],
     }
     check(len(kernels) > 0, "the profiler saw no device kernel")
-    say(f"[5] profiled round trip on {kind} ({card}): {json.dumps(res)}")
+    return res
 
 
 def synced(fn, out: dict, name: str):
@@ -557,6 +589,228 @@ def registration_phase(pts, cols, valid, ccfg, comp_cal, kp_cal, s20_cal,
         f"{json.dumps(sp)}")
 
 
+def zero_off_active(st) -> torch.Tensor:
+    """[B] bool: the patch's C and Q are exactly zero off its active block,
+    the test the kernel makes at entry (else it runs its dense loop on the
+    patch, csrc/sogp_train.cu)."""
+    off = ~st.active
+    both = off[:, :, None] | off[:, None, :]
+    return ~((st.C != 0) & both).any((1, 2)) & ~((st.Q != 0) & both).any((1, 2))
+
+
+def mapping_phase(pts, cols, valid, ccfg, dev, kind, card):
+    """Phase 8: the mapping stream of bench.py:575-688 with its guards, the
+    kernel at the mapping call site, the stage split of one insert, syncs
+    and launches per scan, and the occupancy channel."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from gp_compressor_tpu_torch.config import (MappingConfig,
+                                                RegistrationConfig)
+    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+    from gp_compressor_tpu_torch.geometry import patches
+    from gp_compressor_tpu_torch.models import sparse_gp
+    from gp_compressor_tpu_torch.ops.kernels import RBFParams
+    from gp_compressor_tpu_torch.testing import sogp_regimes
+    from gp_compressor_tpu_torch.workloads import compressor, mapping
+
+    res = ccfg.patch.res
+    lo = (pts.amin(0) - 0.3).cpu().numpy()
+    hi = (pts.amax(0) + 0.3).cpu().numpy()
+    p99 = float(np.percentile(np.linalg.norm(pts.cpu().numpy(), axis=1), 99))
+    steps = min(mapping.required_ray_steps(lo, hi, res),
+                int(1.2 * p99 / res) + 2)
+    mcfg = MappingConfig(min_points_new_patch=50, max_ray_steps=steps,
+                         carve_stride=8, drop_on_reg_cap=False, reg_stride=4)
+    rcfg = RegistrationConfig(max_steps=8, min_steps=2, step_mode="rprop",
+                              bank_points=64)
+    Ns = MAP_SCAN_POINTS
+    scans = [(pts[i::2][:Ns], cols[i::2][:Ns], valid[i::2][:Ns])
+             for i in (0, 1)]
+    check(steps == MAP_STEPS_JAX, f"[8] ray steps {steps} != {MAP_STEPS_JAX}")
+
+    # ---- calibration on scan 0, held to the JAX anchor
+    t0 = time.perf_counter()
+    _, kpc, s20c, _ = compressor.compress_decompress_calibrated(
+        *scans[0], ccfg, calib_patches=32, calib_points=64, calib_steps=150,
+        calib_lr=0.1, calib_starts=4)
+    torch.cuda.synchronize()
+    cal_wall = time.perf_counter() - t0
+    hp = [float(kpc.sigmaf_sq), float(kpc.l_sq), float(s20c)]
+    eps_c = ccfg.depth_gp.eps_tol * hp[0] / ccfg.depth_gp.sigmaf_sq
+    say(f"[8] calibration on scan 0 on {kind} ({card}): sigmaf_sq {hp[0]:.6g}"
+        f" l_sq {hp[1]:.6g} s20 {hp[2]:.6g} eps_c {eps_c:.6g} (JAX anchor "
+        f"{MAP_CAL_JAX}); wall {cal_wall:.4f} s (first call)")
+    for label, v, a in zip(("sigmaf_sq", "l_sq", "s20"), hp, MAP_CAL_JAX):
+        check(math.isfinite(v) and abs(math.log(v / a)) <= 0.1,
+              f"[8] {label} {v} not within 0.1 of the JAX anchor {a} in log "
+              "space")
+
+    # ---- the stream at the anchor's own hyperparameters
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    kp = RBFParams(sigmaf_sq=t(MAP_CAL_JAX[0]), l_sq=t(MAP_CAL_JAX[1]))
+    calib = dict(depth_kp=kp, depth_s20=t(MAP_CAL_JAX[2]),
+                 depth_eps=ccfg.depth_gp.eps_tol * kp.sigmaf_sq
+                 / ccfg.depth_gp.sigmaf_sq)
+    state0 = mapping.map_init(ccfg, mcfg, lo, hi, device=dev)
+    seed, _, _, info_seed = mapping.add_cloud_fused(
+        state0, *scans[0], ccfg, mcfg, rcfg=rcfg, **calib)
+    stream = [scans[(1 + s) % 2] for s in range(MAP_SCANS)]
+    SP, SC, SV = ([s[j] for s in stream] for j in range(3))
+
+    def run():
+        r = mapping.add_clouds(seed, SP, SC, SV, ccfg, mcfg, rcfg=rcfg,
+                               **calib)
+        torch.cuda.synchronize()
+        return r
+
+    # the warm-up captures the first stream insert's main-bank inputs
+    captured = []
+    launch_fn = sogp_train.add_points_batch_cuda
+
+    def spy(kp_, gcfg, states, X, Y, mask, s20=None, eps_tol=None,
+            geom=None):
+        if len(captured) < 2:
+            captured.append((kp_, gcfg, states, X, Y, mask, s20, eps_tol))
+        return launch_fn(kp_, gcfg, states, X, Y, mask, s20=s20,
+                         eps_tol=eps_tol, geom=geom)
+
+    sogp_train.add_points_batch_cuda = spy
+    try:
+        run()
+    finally:
+        sogp_train.add_points_batch_cuda = launch_fn
+    sogp_train.LAUNCHES = 0
+    walls = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        st, dvg, reg_steps, info = run()
+        walls.append(time.perf_counter() - t0)
+    launches = sogp_train.LAUNCHES
+    wall = sorted(walls)[len(walls) // 2]
+    n_scans = TIMED_RUNS * MAP_SCANS
+    check(launches > 0, "[8] the stream launched no training kernel")
+    drops = {k: int(v.sum()) + int(info_seed[k]) for k, v in info.items()}
+    mpts, _, mok = mapping.map_cloud(st, ccfg, depth_kp=kp,
+                                     depth_s20=calib["depth_s20"])
+    mp = mpts[mok].cpu().numpy()
+    finite = np.isfinite(mp).all(axis=1)
+    ref = np.concatenate([s[0].cpu().numpy() for s in scans])
+    d, _ = cKDTree(ref).query(mp[finite], k=1)
+    rmse = float(np.sqrt(np.mean(d ** 2)))
+    n_patches = int(st.n_patches)
+    res8 = {"scans_per_s_median": MAP_SCANS / wall, "walls_s": walls,
+            "n_patches": n_patches, "n_patches_seed": int(seed.n_patches),
+            "ray_steps": steps, "reg_steps": reg_steps.tolist(),
+            "diverged": dvg.tolist(), "map_rmse_m": rmse,
+            "map_points": int(mp.shape[0]),
+            "map_points_nonfinite": int((~finite).sum()), **drops,
+            "kernel_launches_per_scan": launches / n_scans}
+    say(f"[8] mapping stream on {kind} ({card}): {json.dumps(res8)}")
+    check(abs(n_patches - MAP_PATCHES_JAX) <= 0.01 * MAP_PATCHES_JAX,
+          f"[8] n_patches {n_patches} not within 1% of {MAP_PATCHES_JAX}")
+    check(rmse <= MAP_RMSE_MAX and abs(rmse - MAP_RMSE_JAX)
+          <= 0.05 * MAP_RMSE_JAX, f"[8] map RMSE {rmse} above "
+          f"{MAP_RMSE_MAX} or not within 5% of the JAX anchor {MAP_RMSE_JAX}")
+    check(res8["map_points_nonfinite"] == 0, "[8] non-finite map points")
+    check(all(v == 0 for v in drops.values()), f"[8] drops {drops}")
+    check(not any(res8["diverged"]), "[8] a scan diverged")
+
+    # ---- the kernel at its second call site: the first stream insert's
+    # main banks, trained from the map's (non-empty) states
+    check(len(captured) == 2, "[8] main-bank inputs not captured")
+    for kp_, gcfg, states, X, Y, mask, s20, eps in captured:
+        before = [a.clone() for a in states]
+        out = sogp_train.add_points_batch_cuda(kp_, gcfg, states, X, Y, mask,
+                                               s20=s20, eps_tol=eps)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                  for a, b in zip(before, states)),
+              "[8] the kernel changed its input state")
+        B = mask.shape[0]
+        tally = torch.zeros((B, 5), dtype=torch.int64, device=dev)
+        plain = lambda tl=None: sogp_train.add_points_batch_plain(
+            kp_, gcfg, states, X, Y, mask, s20=s20, eps_tol=eps, tally=tl)
+        ref_st = plain(tally)
+        torch.cuda.synchronize()
+        s20v = gcfg.s20 if s20 is None else s20
+        res = sogp_regimes.compare("calibrated", ref_st, out, X, Y, mask,
+                                   kp=kp_, s20=s20v)
+        used = mask.any(1)
+        row = sogp_train.hyper_row(kp_, gcfg, dev, s20=s20, eps_tol=eps)
+        scratch = sparse_gp.SOGPState(*[torch.empty_like(a) for a in states])
+        kern = lambda: sogp_train.launch(gcfg, states, scratch, X, Y, mask,
+                                         row)
+        kern()
+        p1, k1, k2, p2 = (event_ms(plain, 1), event_ms(kern, KERNEL_REPS),
+                          event_ms(kern, KERNEL_REPS), event_ms(plain, 1))
+        ms = (k1 + k2) / 2
+        bound = train_bound(gcfg, X, mask, out, tally=tally)
+        stats = {
+            "patches_with_points": int(used.sum()),
+            "active_at_entry": float(states.active.sum(1)[used].double()
+                                     .mean()),
+            "active_at_exit": float(out.active.sum(1)[used].double().mean()),
+            "zero_off_active_share": float(zero_off_active(states)
+                                           .double().mean()),
+            "rows": int(mask.sum()), "rows_max": int(mask.sum(1).max()),
+            "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+            "bound_us": bound["bound_ms"] * 1e3,
+            "bound_by": bound["bound_by"], "flops": bound["flops"],
+            "share_of_bound": bound["bound_ms"] / ms}
+        say(f"[8] kernel at the mapping call site, main bank D={gcfg.dout} "
+            f"B={B} P={X.shape[1]} S={gcfg.slots} on {kind} ({card}): "
+            f"{json.dumps(res)}; {json.dumps(stats)}")
+
+    # ---- one insert's stage split, synchronised between stages
+    split, last = {}, [0.0]
+
+    def on_stage(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[name] = now - last[0]
+        last[0] = now
+
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    mapping.add_cloud_fused(seed, *stream[0], ccfg, mcfg, rcfg=rcfg,
+                            on_stage=on_stage, **calib)
+    say(f"[8] stages of one stream scan (s, host wall, synchronised between "
+        f"stages) on {kind} ({card}): {json.dumps(split)}; sum "
+        f"{sum(split.values()):.4f} s")
+    _, n_sync, where = count_syncs(run)
+    say(f"[8] synchronising CUDA calls in one add_clouds of {MAP_SCANS} "
+        f"scans: {n_sync} ({n_sync / MAP_SCANS:.2f} per scan), from "
+        f"{json.dumps(where)}")
+    prof = profile_summary(lambda: mapping.add_cloud_fused(
+        seed, *stream[0], ccfg, mcfg, rcfg=rcfg, **calib), wall / MAP_SCANS)
+    say(f"[8] one stream scan profiled on {kind} ({card}): "
+        f"{json.dumps(prof)}")
+
+
+    # ---- the occupancy channel on the final map
+    t0 = time.perf_counter()
+    occ = mapping.train_occupancy(st, ccfg)
+    torch.cuda.synchronize()
+    occ_wall = time.perf_counter() - t0
+    B, G = st.W.shape
+    grid = patches.prediction_grid(ccfg.patch, torch.float32, dev)
+    t0 = time.perf_counter()
+    p = mapping.predict_occupancy(occ, ccfg, grid.expand(B, G, 2))
+    torch.cuda.synchronize()
+    pred_wall = time.perf_counter() - t0
+    created = st.created[:, None]
+    hit = st.W & ~st.free & created
+    carved = st.free & ~st.W & created
+    p_hit, p_carved = float(p[hit].mean()), float(p[carved].mean())
+    say(f"[8] occupancy on {kind} ({card}): train_occupancy {occ_wall:.4f} s, "
+        f"predict_occupancy {pred_wall:.4f} s; mean P(occupied) on "
+        f"{int(hit.sum())} hit cells {p_hit:.4f}, on {int(carved.sum())} "
+        f"carved cells {p_carved:.4f}")
+    check(p_hit > p_carved + 0.1, f"[8] occupancy hit {p_hit} not above "
+                                  f"carved {p_carved} + 0.1")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -788,6 +1042,9 @@ def main() -> int:
     # ---- 7. registration against the calibrated and the headline maps
     registration_phase(pts, cols, valid, ccfg, comp_cal, kp_cal, s20_cal,
                        comp, dev, kind, card)
+
+    # ---- 8. the mapping stream, and the kernel at its second call site
+    mapping_phase(pts, cols, valid, ccfg, dev, kind, card)
 
     # one D=1 and one D=3 launch per round trip: ms and plain_ms are their sum
     kernels = [{

@@ -2,8 +2,8 @@
 
 Field for field the dataclasses of `gp_compressor_tpu.config` (names,
 defaults and meaning; the comments there explain each constant). Only
-`dtype` differs: it is a `torch.dtype`. The mapping, SMC and mesh configs
-arrive with the slices that use them.
+`dtype` differs: it is a `torch.dtype`. The SMC and mesh configs arrive
+with the slices that use them.
 """
 
 from __future__ import annotations
@@ -105,6 +105,20 @@ class RegistrationConfig:
     rprop_eta_max: float = 4e-3
     rprop_tol: float = 2e-5      # rprop stops when every eta < this
     bank_points: Optional[int] = None  # registration bank width override
+
+
+@dataclasses.dataclass(frozen=True)
+class MappingConfig:
+    """Incremental mapping (reference min_nbr 100, src/gp_mapping.cpp:7;
+    the JAX config documents each option)."""
+
+    min_points_new_patch: int = 100   # evidence for a voxel to become a patch
+    max_ray_steps: int = 64           # bound on a carving ray's voxel walk
+    carve_stride: int = 1             # carve every k-th scan ray
+    drop_on_reg_cap: bool = True      # drop a scan whose registration caps
+    reg_stride: int = 1               # register every k-th scan point
+    spill_bank: int = 128             # width of the overflow training bank
+    table_update_max: int = 96        # incremental claim-table update bound
 
 
 @dataclasses.dataclass(frozen=True)

@@ -126,14 +126,21 @@ def launch_geometry(S: int, D: int) -> LaunchGeometry:
 
 
 def hyper_row(kp: RBFParams, cfg: GPConfig, device, s20=None, eps_tol=None,
-              geom=None) -> torch.Tensor:
+              geom=None, dtype=torch.float32) -> torch.Tensor:
     """The kernel's float32[7] hyperparameter row
     [sigmaf^2, l^2, s20, eps_tol, kappa, geom_max_bv, gamma_min * sigmaf^2],
     computed in float32 exactly as the TPU kernel's wrapper does, so that
     overrides (calibrated s20 / eps_tol, geometric sweeps) reach the kernel
-    as data. geom: optional (dmin, max_bv, gamma_min_rel) override."""
-    dt = torch.float32
-    t = lambda v: torch.as_tensor(v, dtype=dt, device=device)
+    as data. geom: optional (dmin, max_bv, gamma_min_rel) override. dtype:
+    the row's dtype (the plain version computes it in its states' dtype,
+    so a float64 state trains at float64 hyperparameters)."""
+    dt = dtype
+
+    def t(v):
+        # a Python number is filled on the device (no host-to-device copy)
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype=dt, device=device)
+        return torch.full((), v, dtype=dt, device=device)
     sf, l2 = t(kp.sigmaf_sq), t(kp.l_sq)
     g_dmin, g_maxbv, g_gmin = (cfg.geom_dmin, cfg.geom_max_bv,
                                cfg.geom_gamma_min_rel) if geom is None else geom
@@ -151,7 +158,8 @@ def add_points_batch_plain(kp: RBFParams, cfg: GPConfig, states: SOGPState,
     the unfused per-point loop, fed the same hyperparameter row. tally:
     optional [B, 5] int64 per-patch counts of the training's work (see
     sparse_gp.add_point)."""
-    row = hyper_row(kp, cfg, X.device, s20=s20, eps_tol=eps_tol, geom=geom)
+    row = hyper_row(kp, cfg, X.device, s20=s20, eps_tol=eps_tol, geom=geom,
+                    dtype=states.C.dtype)
     return sparse_gp.add_points_batch(
         RBFParams(row[0], row[1]), GaussianNoise(row[2]), cfg, states, X, Y,
         mask, eps_tol=row[3], geom=(row[4], row[5], row[6]), tally=tally)

@@ -19,6 +19,7 @@ raise NotImplementedError.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -63,10 +64,31 @@ _SYM_POS = np.zeros((4, 4), np.int64)
 for _k, (_i, _j) in enumerate(zip(_SYM_I, _SYM_J)):
     _SYM_POS[_i, _j] = _SYM_POS[_j, _i] = _k
 
+# the octant-resolution sphere moments: for each neighbour offset, the
+# octants of that neighbour inside the home voxel's search sphere,
+# |d + c_o| <= sqrt(3)/2 (res units) with octant centres c_o = +-0.25
+_OCT_C = np.array([[(0.25 if b & 4 else -0.25), (0.25 if b & 2 else -0.25),
+                    (0.25 if b & 1 else -0.25)] for b in range(8)])
+_APPROX_SEL = [(k, np.nonzero(np.linalg.norm(np.asarray(off, float)[None, :]
+                                             + _OCT_C, axis=1)
+                              <= voxel.SQRT3_2)[0])
+               for k, off in enumerate(voxel.OFFSETS)]
+_APPROX_SEL = [(k, sel) for k, sel in _APPROX_SEL if len(sel)]
+
+
+@functools.lru_cache(maxsize=None)
+def _const(name: str, k: int, device: torch.device) -> torch.Tensor:
+    """The module's index tables on `device`, copied once (a copy from host
+    memory synchronises the stream)."""
+    table = {"sym_i": _SYM_I, "sym_j": _SYM_J, "sym_pos": _SYM_POS,
+             "offsets": voxel.OFFSETS,
+             "approx_sel": dict(_APPROX_SEL).get(k)}[name]
+    return torch.as_tensor(np.asarray(table), device=device)
+
 
 def _sym10_to_44(m10: torch.Tensor) -> torch.Tensor:
     """[..., 10] packed symmetric moments -> [..., 4, 4]."""
-    return m10[..., torch.as_tensor(_SYM_POS, device=m10.device)]
+    return m10[..., _const("sym_pos", 0, m10.device)]
 
 
 def _segment_sum(data: torch.Tensor, seg: torch.Tensor,
@@ -205,7 +227,7 @@ def sphere_moments(grid: VoxelGrid, points: torch.Tensor, valid: torch.Tensor,
     N = points.shape[0]
     h = torch.cat([points.double(),
                    torch.ones((N, 1), dtype=torch.float64, device=dev)], -1)
-    hh = h[:, _SYM_I] * h[:, _SYM_J]                                  # [N,10]
+    hh = h[:, _const("sym_i", 0, dev)] * h[:, _const("sym_j", 0, dev)]  # [N,10]
     if cfg.approx_sphere_moments:
         # one scatter of per-(voxel, octant) moments; the radius filter
         # becomes a static [27 offsets x 8 octants] inclusion table
@@ -219,22 +241,16 @@ def sphere_moments(grid: VoxelGrid, points: torch.Tensor, valid: torch.Tensor,
         Mv8 = _segment_sum(hh, seg, B * 8 + 1)[:B * 8].reshape(B, 8, 10)
 
         # octant o of the neighbour at offset d is in the sphere iff
-        # |d + c_o| <= sqrt(3)/2 (res units), c_o = +-0.25
-        octc = np.array([[(0.25 if b & 4 else -0.25),
-                          (0.25 if b & 2 else -0.25),
-                          (0.25 if b & 1 else -0.25)] for b in range(8)])
+        # |d + c_o| <= sqrt(3)/2 (_APPROX_SEL)
         leaf3 = voxel.delinearize(torch.clamp(grid.keys, max=2 ** 30),
                                   grid.dims)
+        offs = _const("offsets", 0, dev).to(torch.int32)
         M = torch.zeros((B, 10), dtype=torch.float64, device=dev)
-        for off in voxel.OFFSETS:
-            d = np.asarray(off, float)[None, :] + octc
-            sel = np.nonzero(np.linalg.norm(d, axis=1) <= voxel.SQRT3_2)[0]
-            if not len(sel):
-                continue
-            nb3 = leaf3 + torch.tensor(off, dtype=torch.int32, device=dev)
+        for k, _ in _APPROX_SEL:
+            nb3 = leaf3 + offs[k]
             nb_idx, nb_ok = voxel.lookup(grid,
                                          voxel.linearize(nb3, grid.dims))
-            part = torch.sum(Mv8[:, torch.as_tensor(sel, device=dev)], dim=1)
+            part = torch.sum(Mv8[:, _const("approx_sel", k, dev)], dim=1)
             M = M + torch.where(nb_ok[:, None], part[nb_idx.long()], 0.0)
         M = _sym10_to_44(M)
         sphere_counts = M[:, 3, 3].to(torch.int32)
@@ -420,10 +436,10 @@ def prediction_grid(cfg: PatchConfig, dtype=torch.float32,
     it."""
     sz = cfg.sz
     m = torch.arange(sz * sz, device=device)
-    inv = 1.0 / torch.tensor(float(sz), dtype=dtype, device=device)
+    inv = 1.0 / torch.full((), float(sz), dtype=dtype, device=device)
     x = (m % sz).to(dtype)
     y = torch.div(m, sz, rounding_mode='floor').to(dtype)
-    res = torch.tensor(cfg.res, dtype=dtype, device=device)
+    res = torch.full((), cfg.res, dtype=dtype, device=device)
     u = res * ((x + 0.5) * inv - 0.5)
     v = res * ((y + 0.5) * inv - 0.5)
     return torch.stack([u, v], dim=-1)

@@ -10,7 +10,19 @@ otherwise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _basis(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The cross-product axis per dominant axis, on `device` once (a copy
+    from host memory synchronises the stream)."""
+    return torch.tensor([[0.0, 0.0, 1.0],    # dom=x -> cross with z
+                         [1.0, 0.0, 0.0],    # dom=y -> cross with x
+                         [0.0, 1.0, 0.0]],   # dom=z -> cross with y
+                        dtype=dtype, device=device)
 
 
 def frame_from_normal(normal: torch.Tensor) -> torch.Tensor:
@@ -27,11 +39,7 @@ def frame_from_normal(normal: torch.Tensor) -> torch.Tensor:
     nd = torch.gather(normal, -1, dom[..., None])
     sign = torch.where(nd < 0, -1.0, 1.0).to(normal.dtype)
     n = normal * sign
-    basis = torch.tensor([[0.0, 0.0, 1.0],    # dom=x -> cross with z
-                          [1.0, 0.0, 0.0],    # dom=y -> cross with x
-                          [0.0, 1.0, 0.0]],   # dom=z -> cross with y
-                         dtype=normal.dtype, device=normal.device)
-    axis = basis[dom]
+    axis = _basis(normal.dtype, normal.device)[dom]
     c1 = torch.linalg.cross(axis, n, dim=-1)
     c1 = c1 / torch.linalg.norm(c1, dim=-1, keepdim=True)
     c2 = torch.linalg.cross(n, c1, dim=-1)

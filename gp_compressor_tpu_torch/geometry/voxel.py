@@ -159,6 +159,97 @@ def voxel_centers(grid: VoxelGrid) -> torch.Tensor:
     return grid.origin + (keys3.to(grid.origin.dtype) + 0.5) * grid.res
 
 
+class RayWalkState(NamedTuple):
+    """Per-ray Amanatides–Woo traversal state, batched over N rays: every
+    voxel a ray passes through inside the grid box is visited once, in
+    order of increasing ray parameter t."""
+
+    X: torch.Tensor        # [N, 3] int32 current voxel key
+    tmax: torch.Tensor     # [N, 3] ray parameter of the next boundary per axis
+    tdelta: torch.Tensor   # [N, 3] parameter width of one voxel per axis
+    stepv: torch.Tensor    # [N, 3] int32 per-axis step (-1, 0, +1)
+    t: torch.Tensor        # [N] entry parameter of the current voxel
+    t_end: torch.Tensor    # [N] parameter at which the walk leaves the grid
+    active: torch.Tensor   # [N] bool: the current voxel is a real visit
+
+
+def max_walk_steps(dims) -> int:
+    """Iteration bound covering any ray through a dims grid: a segment
+    crossing the whole box passes through at most sum(dims) + 1 voxels."""
+    return int(np.sum(np.asarray(dims))) + 2
+
+
+def ray_walk_init(origin: torch.Tensor, dims: torch.Tensor, res,
+                  cam: torch.Tensor, delta: torch.Tensor,
+                  t_stop=None) -> RayWalkState:
+    """Start a batched voxel walk of rays p(t) = cam + t * delta, t >= 0.
+
+    cam: [3] shared ray origin; delta: [N, 3] directions (point - cam puts
+    the measured point at t = 1). The walk spans [0, t_stop] (None: until
+    the ray leaves the grid) intersected with the grid box."""
+    dt = delta.dtype
+    big = 3.4e38
+    res = torch.as_tensor(res, dtype=dt)
+    lo = origin
+    hi = origin + dims.to(dt) * res
+    c = cam[None, :]
+    d = delta
+
+    nz = d != 0
+    dsafe = torch.where(nz, d, 1.0)
+    t1 = torch.where(nz, (lo - c) / dsafe, torch.where(c >= lo, -big, big))
+    t2 = torch.where(nz, (hi - c) / dsafe, torch.where(c <= hi, big, -big))
+    tlo = torch.minimum(t1, t2)
+    thi = torch.maximum(t1, t2)
+    t_enter = torch.clamp(torch.amax(tlo, dim=-1), min=0.0)          # [N]
+    t_exit = torch.amin(thi, dim=-1)
+    if t_stop is not None:
+        t_exit = torch.clamp(t_exit, max=t_stop)
+    ok = t_enter < t_exit
+
+    # entry voxel: nudge just inside the box so boundary floors resolve
+    eps = torch.clamp(1e-6 * (t_exit - t_enter), min=0.0)
+    p0 = c + (t_enter + eps)[:, None] * d
+    X0 = torch.minimum(torch.clamp(point_keys(p0, origin, res), min=0),
+                       dims - 1)
+
+    stepv = torch.where(d > 0, 1, torch.where(d < 0, -1, 0)).to(torch.int32)
+    next_bound = lo + (X0 + (stepv > 0).to(torch.int32)).to(dt) * res
+    tmax = torch.where(nz, (next_bound - c) / dsafe, big)
+    tdelta = torch.where(nz, res / torch.abs(dsafe), big)
+    return RayWalkState(X=X0, tmax=tmax, tdelta=tdelta, stepv=stepv,
+                        t=t_enter, t_end=t_exit, active=ok)
+
+
+def ray_walk_step(st: RayWalkState, dims: torch.Tensor) -> RayWalkState:
+    """Advance every ray to its next voxel (one Amanatides–Woo step). Ties
+    between axes go to the lower axis, as `jnp.argmin` breaks them."""
+    t0, t1, t2 = st.tmax.unbind(-1)
+    axis = torch.where((t0 <= t1) & (t0 <= t2), 0,
+                       torch.where(t1 <= t2, 1, 2))
+    onehot = axis[:, None] == torch.arange(3, device=axis.device)
+    t_next = torch.amin(st.tmax, dim=-1)
+    X = st.X + torch.where(onehot, st.stepv, 0)
+    tmax = st.tmax + torch.where(onehot, st.tdelta, 0.0)
+    inb = torch.all((X >= 0) & (X < dims), dim=-1)
+    active = st.active & (t_next < st.t_end) & inb
+    return st._replace(X=X, tmax=tmax, t=t_next, active=active)
+
+
+def ray_voxel_list(origin: torch.Tensor, dims: torch.Tensor, res,
+                   cam: torch.Tensor, delta: torch.Tensor, max_steps: int,
+                   t_stop=None):
+    """Oracle helper: the visited linear keys of every ray.
+    Returns ([N, max_steps] int32 linear keys, FILL padded; [N] counts)."""
+    st = ray_walk_init(origin, dims, res, cam, delta, t_stop=t_stop)
+    keys = []
+    for _ in range(max_steps):
+        keys.append(torch.where(st.active, linearize(st.X, dims), FILL))
+        st = ray_walk_step(st, dims)
+    keys = torch.stack(keys, dim=1)                                  # [N, S]
+    return keys, torch.sum(keys != FILL, dim=-1)
+
+
 def candidate_at_offset(grid: VoxelGrid, points: torch.Tensor,
                         valid: torch.Tensor, offset) -> tuple:
     """Leaf candidacy of each point at ONE of its 27 neighbour offsets:

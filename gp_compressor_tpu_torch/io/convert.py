@@ -20,6 +20,7 @@ from gp_compressor_tpu_torch.geometry.patches import PatchBatch
 from gp_compressor_tpu_torch.geometry.voxel import VoxelGrid
 from gp_compressor_tpu_torch.models.sparse_gp import SOGPState
 from gp_compressor_tpu_torch.workloads.compressor import CompressedCloud
+from gp_compressor_tpu_torch.workloads.mapping import MapState
 from gp_compressor_tpu_torch.workloads.registration import (ClaimTables,
                                                            RegistrationState)
 
@@ -74,6 +75,20 @@ def registration_state_from_numpy(d, device=None) -> RegistrationState:
 
 def claim_tables_from_numpy(d, device=None) -> ClaimTables:
     return _tuple(ClaimTables, d, device)
+
+
+def map_state_from_numpy(d, device=None) -> MapState:
+    """MapState from the JAX MapState's fields (depth_gp, rgb_gp and
+    tables as nested dicts)."""
+    nested = {"depth_gp": state_from_numpy, "rgb_gp": state_from_numpy,
+              "tables": claim_tables_from_numpy}
+    return MapState(**{f: nested[f](d[f], device) if f in nested
+                       else _t(d[f], device) for f in MapState._fields})
+
+
+def mapping_config_from_dict(d) -> config_mod.MappingConfig:
+    """MappingConfig from `dataclasses.asdict` of the JAX config."""
+    return _config(config_mod.MappingConfig, d)
 
 
 def compressor_config_from_dict(d) -> config_mod.CompressorConfig:

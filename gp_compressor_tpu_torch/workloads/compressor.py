@@ -44,9 +44,10 @@ class CompressedCloud(NamedTuple):
 
 def default_params(cfg: CompressorConfig,
                    device=None) -> Tuple[RBFParams, RBFParams]:
-    """The configs' kernel constants as 0-dim tensors of each GP's dtype."""
+    """The configs' kernel constants as 0-dim tensors of each GP's dtype
+    (filled on the device: no host-to-device copy)."""
     def kp(g):
-        t = lambda v: torch.tensor(v, dtype=g.dtype, device=device)
+        t = lambda v: torch.full((), v, dtype=g.dtype, device=device)
         return RBFParams(sigmaf_sq=t(g.sigmaf_sq), l_sq=t(g.l_sq))
 
     return kp(cfg.depth_gp), kp(cfg.rgb_gp)

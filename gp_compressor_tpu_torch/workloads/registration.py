@@ -1,7 +1,7 @@
 """Scan-to-map rigid registration by gradient ascent on the GP likelihood.
 
-The port of `gp_compressor_tpu.workloads.registration` (less the mapping
-stream's persistent claim tables). The map is a compressed cloud (patch
+The port of `gp_compressor_tpu.workloads.registration`, with the mapping
+stream's persistent claim tables. The map is a compressed cloud (patch
 GPs). Each step claims scan points to map patches with the same
 first-claim rule as compression, banks them per patch, takes the
 closed-form gradient of each point's predictive density w.r.t. its local
@@ -152,6 +152,97 @@ def _claim_table_rows(cells3, ok_cell, key_to_leaf, trained, rotations,
     return (prio27[:, sel].reshape(M * 8, 8),
             gid27[:, sel].reshape(M * 8, 8),
             R12_27[:, sel].reshape(M * 8, 8, 6))
+
+
+def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """dst with dst[idx] = src, where idx == len(dst) marks a dropped row
+    (JAX's `mode='drop'`): the write lands in a dump row sliced off. src:
+    a tensor, or a Python scalar (filled on dst's device)."""
+    n = dst.shape[0]
+    out = torch.cat([dst, dst[:1]])
+    if not isinstance(src, torch.Tensor):
+        src = torch.full((), src, dtype=dst.dtype, device=dst.device)
+    out[idx.long()] = src
+    return out[:n]
+
+
+def build_claim_tables_dense(key_to_leaf, key_by_gid, n_patches, trained,
+                             rotations, means, dims) -> ClaimTables:
+    """Full build of the mapping stream's persistent claim tables.
+
+    Row layout: base row gid*27 + j holds the cell leaf_cell(gid) +
+    OFFSETS[j]; gp-index rows stay put across scans. Row content depends
+    on the cell only, so duplicate writers (adjacent leaves sharing a
+    dilated cell) write identical rows and any cell_row winner is right."""
+    B = key_by_gid.shape[0]
+    i32 = torch.int32
+    dev = key_by_gid.device
+    offs = _const("offs27", dev)
+    nc = key_to_leaf.shape[0]
+    exists = torch.arange(B, device=dev) < n_patches
+    leaf3 = voxel.delinearize(torch.clamp(key_by_gid, max=voxel.FILL - 1),
+                              dims)
+    cells3 = (leaf3[:, None, :] + offs[None]).reshape(B * 27, 3)
+    lin = voxel.linearize(cells3, dims)
+    okc = exists.repeat_interleave(27) & (lin != voxel.FILL)
+    cell_row = _scatter_rows(
+        torch.full((nc,), -1, dtype=i32, device=dev),
+        torch.where(okc, lin, nc), torch.arange(B * 27, dtype=i32, device=dev))
+    prio, gid, R12 = _claim_table_rows(cells3, okc, key_to_leaf, trained,
+                                       rotations, dims)
+    nm = torch.cat([rotations[:, :, 0], means], dim=1)
+    return ClaimTables(cell_row=cell_row, prio=prio, gid=gid, R12=R12, nm=nm)
+
+
+def empty_claim_tables_dense(n_cells: int, B: int, dtype=torch.float32,
+                             device=None) -> ClaimTables:
+    """map_init's persistent tables: no candidates anywhere."""
+    i32 = torch.int32
+    return ClaimTables(
+        cell_row=torch.full((n_cells,), -1, dtype=i32, device=device),
+        prio=torch.full((B * 27 * 8, 8), voxel.FILL, dtype=i32,
+                        device=device),
+        gid=torch.zeros((B * 27 * 8, 8), dtype=i32, device=device),
+        R12=torch.zeros((B * 27 * 8, 8, 6), dtype=dtype, device=device),
+        nm=torch.zeros((B, 6), dtype=dtype, device=device))
+
+
+def update_claim_tables(tables: ClaimTables, changed_gids, changed_ok,
+                        key_to_leaf, key_by_gid, trained, rotations,
+                        dims) -> ClaimTables:
+    """Fold K newly trained leaves into the persistent claim tables. A
+    leaf's candidacy touches exactly the rows of its 27-neighbourhood
+    cells, so the update allocates rows from the changed leaf's own row
+    budget for the cells not covered yet, and recomputes those rows
+    against the current map. changed_gids: [K] gp indices, changed_ok
+    False on padding."""
+    i32 = torch.int32
+    dev = changed_gids.device
+    K = changed_gids.shape[0]
+    offs = _const("offs27", dev)
+    nc = tables.cell_row.shape[0]
+    g = torch.clamp(changed_gids, 0, key_by_gid.shape[0] - 1)
+    leaf3 = voxel.delinearize(
+        torch.clamp(key_by_gid[g.long()], max=voxel.FILL - 1), dims)
+    cells3 = (leaf3[:, None, :] + offs[None]).reshape(K * 27, 3)
+    lin = voxel.linearize(cells3, dims)
+    okc = changed_ok.repeat_interleave(27) & (lin != voxel.FILL)
+    cur = tables.cell_row[torch.clamp(lin, 0, nc - 1).long()]
+    own = (g[:, None] * 27
+           + torch.arange(27, dtype=i32, device=dev)[None]).reshape(K * 27)
+    rowid = torch.where(cur >= 0, cur, own)
+    cell_row = _scatter_rows(tables.cell_row, torch.where(okc, lin, nc), rowid)
+    prio, gid, R12 = _claim_table_rows(cells3, okc, key_to_leaf, trained,
+                                       rotations, dims)
+    tgt = torch.where(okc[:, None], rowid[:, None] * 8
+                      + torch.arange(8, dtype=i32, device=dev)[None],
+                      tables.prio.shape[0]).reshape(K * 27 * 8)
+    return tables._replace(
+        cell_row=cell_row,
+        prio=_scatter_rows(tables.prio, tgt, prio),
+        gid=_scatter_rows(tables.gid, tgt, gid),
+        R12=_scatter_rows(tables.R12, tgt, R12))
 
 
 def claim_with_tables(tables: ClaimTables, grid, points, valid, res,

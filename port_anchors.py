@@ -12,12 +12,19 @@ the 300k-point `room_cloud(seed=0)` at the bench configuration
   * registration (`bench.py:488-572`): rprop with 80 steps on the
     calibrated map, and the reference-constants row (fixed step 0.005,
     grad_tol_step_ref 0.1, 40 steps) on the headline map: steps, initial
-    and final mean point error, translation and rotation error.
+    and final mean point error, translation and rotation error;
+  * mapping (`bench.py:575-688`): sigma_f^2, l^2, s20 calibrated on scan 0
+    of the two 150k-point scans, then the stream at those values (the seed
+    scan, then one `add_clouds` of 4 scans alternating scan 1 and scan 0):
+    n_patches, the one-sided chamfer RMSE from `map_cloud` to both scans,
+    non-finite map points, the summed drop counters, per-scan reg_steps.
 
-    JAX_PLATFORMS=cpu python3 port_anchors.py
+    JAX_PLATFORMS=cpu python3 port_anchors.py [section ...]
 
-It needs the JAX package and a few GiB of host memory, and takes some
-minutes on the CPU; the port's machine does not run it.
+with sections among headline, calibrated, registration, mapping (all when
+none is named; registration needs calibrated and headline). It needs the
+JAX package and a few GiB of host memory, and takes some minutes on the
+CPU; the port's machine does not run it.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import sys
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -63,7 +71,58 @@ def hist(state):
                        minlength=33).tolist()
 
 
-def main():
+def mapping_anchors(pts, cols, valid, cfg):
+    """The mapping row of bench.py:575-688 on the CPU (float32)."""
+    from scipy.spatial import cKDTree
+
+    from gp_compressor_tpu.config import MappingConfig
+    from gp_compressor_tpu.workloads import mapping
+
+    lo = np.asarray(jnp.min(pts, 0)) - 0.3
+    hi = np.asarray(jnp.max(pts, 0)) + 0.3
+    p99 = float(np.percentile(np.linalg.norm(np.asarray(pts), axis=1), 99))
+    steps = min(mapping.required_ray_steps(lo, hi, cfg.patch.res),
+                int(1.2 * p99 / cfg.patch.res) + 2)
+    mcfg = MappingConfig(min_points_new_patch=50, max_ray_steps=steps,
+                         carve_stride=8, drop_on_reg_cap=False, reg_stride=4)
+    rcfg = RegistrationConfig(max_steps=8, min_steps=2, step_mode="rprop",
+                              bank_points=64)
+    n_scans, Ns = 4, 150_000
+    scans = [(pts[i::2][:Ns], cols[i::2][:Ns], valid[i::2][:Ns])
+             for i in (0, 1)]
+    _, kpc, s20c, _ = compressor.compress_decompress_calibrated(
+        *scans[0], cfg, jax.random.key(5), calib_patches=32,
+        calib_points=64, calib_steps=150, calib_lr=0.1, calib_starts=4)
+    eps_c = cfg.depth_gp.eps_tol * kpc.sigmaf_sq / cfg.depth_gp.sigmaf_sq
+    calib = dict(depth_kp=kpc, depth_s20=s20c, depth_eps=eps_c)
+    state = mapping.map_init(cfg, mcfg, lo, hi, dtype=pts.dtype)
+    state, _, _, info0 = mapping.add_cloud_fused(
+        state, *scans[0], cfg, mcfg, jax.random.key(0), rcfg=rcfg, **calib)
+    n_seed = int(state.n_patches)
+    SP, SC, SV = (jnp.stack([scans[(1 + s) % 2][j] for s in range(n_scans)])
+                  for j in range(3))
+    state, diverged, reg_steps, info = mapping.add_clouds(
+        state, SP, SC, SV, cfg, mcfg, jax.random.key(1), rcfg=rcfg, **calib)
+    mpts, _, mok = mapping.map_cloud(state, cfg, depth_kp=kpc,
+                                     depth_s20=s20c)
+    mp = np.asarray(mpts)[np.asarray(mok)]
+    finite = np.isfinite(mp).all(axis=1)
+    ref = np.concatenate([np.asarray(s[0]) for s in scans])
+    d, _ = cKDTree(ref).query(mp[finite], k=1)
+    return {
+        "sigmaf_sq": float(kpc.sigmaf_sq), "l_sq": float(kpc.l_sq),
+        "s20": float(s20c), "eps_c": float(eps_c), "ray_steps": steps,
+        "n_patches_seed": n_seed, "n_patches": int(state.n_patches),
+        "map_rmse_m": float(np.sqrt(np.mean(d ** 2))),
+        "map_points": int(mp.shape[0]),
+        "map_points_nonfinite": int((~finite).sum()),
+        "reg_steps": np.asarray(reg_steps).tolist(),
+        "diverged": np.asarray(diverged).tolist(),
+        **{k: int(np.sum(np.asarray(v)) + int(info0[k]))
+           for k, v in info.items()}}
+
+
+def main(sections):
     t_start = time.time()
     cfg = bench_config()
     pts_np, cols_np = synthetic.room_cloud(n=N_POINTS, seed=0)
@@ -71,6 +130,15 @@ def main():
     cols = jnp.asarray(cols_np, jnp.float32)
     valid = jnp.ones(N_POINTS, bool)
     out = {}
+
+    if "mapping" in sections:
+        out["mapping"] = mapping_anchors(pts, cols, valid, cfg)
+        print(json.dumps({"mapping": out["mapping"]}), flush=True)
+    if not sections & {"headline", "calibrated", "registration"}:
+        out["seconds"] = time.time() - t_start
+        out["jax"] = jax.__version__
+        print(json.dumps(out), flush=True)
+        return
 
     comp, _ = compressor.compress_decompress(pts, cols, valid, cfg,
                                              jax.random.key(0))
@@ -132,4 +200,5 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(set(sys.argv[1:]) or {"headline", "calibrated", "registration",
+                               "mapping"})

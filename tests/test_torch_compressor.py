@@ -133,6 +133,8 @@ def test_port_imports_no_jax():
             "import gp_compressor_tpu_torch.models.exact_gp\n"
             "import gp_compressor_tpu_torch.inference.hmc\n"
             "import gp_compressor_tpu_torch.workloads.registration\n"
+            "import gp_compressor_tpu_torch.workloads.mapping\n"
+            "import gp_compressor_tpu_torch.testing.mapping_case\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'gp_compressor_tpu.')) or m == "
             "'gp_compressor_tpu']\n"

@@ -3,8 +3,10 @@ PyTorch version, on the card, for the four training regimes of
 tests/test_pallas_sogp.py, the strict ones over state sizes of 8 to 128
 slots, the realistic one at 32 slots, a state with a NaN, the bench
 banks and small banks at the calibrated hyperparameters (rules in
-gp_compressor_tpu_torch/testing/sogp_regimes.py), and the kernel's inline
-division against IEEE division.
+gp_compressor_tpu_torch/testing/sogp_regimes.py), the mapping call site
+(the small mapping case's banks trained from the map's non-empty states,
+and one state non-zero off its active block, which takes the kernel's
+dense loop), and the kernel's inline division against IEEE division.
 
 This file imports no JAX. Run it on a machine with a CUDA card:
 
@@ -133,6 +135,75 @@ def test_bench_banks_match_plain(dev, bench, dout):
     assert int(sparse_gp.size(ref).max()) < gpcfg.capacity
     sogp_regimes.compare("bench", ref, out, batch.X, Y, batch.mask, kp=kp,
                          s20=gpcfg.s20)
+
+
+@pytest.fixture(scope="module")
+def map_banks(dev):
+    """The small mapping case on the card: the map after scan 0 (trained
+    by the kernel), then the main-bank inputs of scan 1's insert, whose
+    input states are the map's non-empty states."""
+    import numpy as np
+
+    from gp_compressor_tpu_torch import config
+    from gp_compressor_tpu_torch.testing import mapping_case as case
+    from gp_compressor_tpu_torch.workloads import mapping
+
+    cfg = case.compressor_config(config, torch.float32)
+    mc = case.mapping_config(config)
+    sc = [tuple(torch.from_numpy(a).to(dev) for a in s)
+          for s in case.scans(np.float32)]
+    st = mapping.map_init(cfg, mc, *case.BOX, pending_capacity=case.PENDING,
+                          device=dev)
+    st, _ = mapping.map_insert(st, *sc[0], cfg, mc, 1)
+    captured = []
+    train = sogp_train.add_points_batch_cuda
+
+    def spy(kp, gcfg, states, X, Y, mask, **kw):
+        captured.append((kp, gcfg, states, X, Y, mask, kw))
+        return train(kp, gcfg, states, X, Y, mask, **kw)
+
+    sogp_train.add_points_batch_cuda = spy
+    try:
+        mapping.map_insert(st, *sc[1], cfg, mc, mc.min_points_new_patch)
+    finally:
+        sogp_train.add_points_batch_cuda = train
+    return captured[:2]                      # main bank, D=1 and D=3
+
+
+def _mapping_compare(dev, kp, gcfg, init, X, Y, M, kw):
+    ref, out = _both(dev, gcfg, X, Y, M, init=init, kp=kp, **kw)
+    s20 = kw.get("s20")
+    return sogp_regimes.compare("calibrated", ref, out, X, Y, M, kp=kp,
+                                s20=gcfg.s20 if s20 is None else s20)
+
+
+@pytest.mark.parametrize("call", [0, 1], ids=["depth", "rgb"])
+def test_mapping_banks_from_map_states_match_plain(dev, map_banks, call):
+    """The kernel at the mapping call site, starting from the map's
+    states (the `calibrated` rule: the small map's patches churn at
+    capacity 12)."""
+    kp, gcfg, states, X, Y, M, kw = map_banks[call]
+    used = M.any(1)
+    assert float(states.active.sum(1)[used].double().mean()) > 1.0
+    _mapping_compare(dev, kp, gcfg, states, X, Y, M, kw)
+
+
+def test_state_nonzero_off_active_block_takes_dense_loop(dev, map_banks):
+    """A patch whose C is non-zero between an active and an inactive slot
+    runs the kernel's dense loop, which holds the plain version."""
+    import chip_smoke
+
+    kp, gcfg, states, X, Y, M, kw = map_banks[0]
+    n = states.active.sum(1)
+    b = int(torch.nonzero((n > 0) & (n < gcfg.slots) & M.any(1))[0])
+    i = int(torch.nonzero(states.active[b])[0])
+    j = int(torch.nonzero(~states.active[b])[0])
+    C = states.C.clone()
+    C[b, i, j] = C[b, j, i] = 1e-3 * float(states.C[b].abs().max())
+    init = states._replace(C=C)
+    assert not bool(chip_smoke.zero_off_active(init)[b])
+    assert bool(chip_smoke.zero_off_active(states)[b])
+    _mapping_compare(dev, kp, gcfg, init, X, Y, M, kw)
 
 
 @pytest.mark.parametrize("dout", [1, 3])
