@@ -49,7 +49,19 @@ Phases, each of which must pass (any failure exits non-zero):
                first stream insert's main banks (non-empty input states,
                the `calibrated` rule), the stage split of one insert, the
                synchronising calls and kernel launches per scan, and the
-               occupancy channel on the final map.
+               occupancy channel on the final map;
+  9. bayes   — the Bayesian layer at the JAX package's bench rows: NUTS
+               with 4 and 16 chains on phase 3's banks (bench.py:373-433:
+               samples/s, accept, split-R-hat, ESS/s, leapfrogs and host
+               reads per transition), ADVI from the multi-start MAP mode
+               (bench.py:436-456), compress_calibrated(method="hmc") on
+               the cloud (calibrated values, RMSE, kernel launches, the
+               HMC's share), SMC pose refinement of a moved scan against
+               phase 8's seed map after an 8-step registration budget
+               (bench.py:691-777); each held to the JAX package's CPU
+               anchors; then a NUTS transition, HMC and ADVI steps and an
+               SMC step on the card against the CPU in float64 with the
+               same draws.
 
 The last three lines of standard output are the kernels' JSON object, the
 card's `nvidia-smi` name and power limit, and the result object.
@@ -104,6 +116,43 @@ MAP_PATCHES_JAX = 1681
 MAP_RMSE_JAX = 0.02251934293019489               # m, one-sided chamfer
 MAP_RMSE_MAX = 0.025
 MAP_SCANS, MAP_SCAN_POINTS = 4, 150_000
+# anchors of phase 9: the JAX package's Bayesian rows on the CPU in float32
+# (port_anchors.py bayes, jax 0.9.0). NUTS on phase 3's banks' 16 x 48
+# subsample, 50 warmup + 100 samples: the posterior mean and standard
+# deviation of theta = (ln sigma_f^2, ln l^2, ln s20), its ESS, the mean
+# accept statistic and the max split-R-hat
+NUTS_JAX = {
+    4: dict(mean=(-5.776528425216675, -5.701640204191208, -8.166670837402343),
+            std=(0.2618568381169793, 0.18187006193447028,
+                 0.0659269047631543),
+            ess=(65.4940414428711, 74.58336639404297, 133.3333282470703),
+            accept=0.9314074516296387, max_rhat=1.030873417854309),
+    16: dict(mean=(-5.806445277035237, -5.69391652263701, -8.162288460731506),
+             std=(0.36003117089733283, 0.30222239631387027,
+                  0.09760737937190248),
+             ess=(164.0274658203125, 216.0821075439453, 250.63792419433594),
+             accept=0.9270662665367126, max_rhat=1.072005271911621)}
+# the 16-chain row's max split-R-hat at 8 more seeds (port_anchors.py
+# nuts_seeds): 50 warmup transitions leave a chain in transit now and then
+NUTS16_RHAT_JAX = (1.0285327434539795, 1.0604816675186157, 1.0622564554214478,
+                   1.0513066053390503, 1.0400068759918213, 1.231974482536316,
+                   1.2655634880065918, 1.035811185836792)
+NUTS_WARMUP, NUTS_SAMPLES = 50, {4: 100, 16: 100}
+ADVI_JAX = dict(plateaued=True, mean=(-5.804538726806641, -5.698229789733887,
+                                      -8.183993339538574))
+ADVI_STEPS = 300
+# compress_calibrated(method="hmc") at 400 steps: sigma_f^2, l^2, s20, RMSE
+HMC_CAL_STEPS = 400
+HMC_CAL_JAX = (1.082348171621561e-3, 1.4159923885017633e-3,
+               4.3668327271007e-4, 0.013525919988751411)
+# the SMC row: mean point error injected, after the 8-step registration
+# budget, and after smc_refine_pose (256 particles, 16 steps) at 3 keys
+SMC_ANG = [0.012, -0.008, 0.010]                 # bench.py:731-732
+SMC_T = [0.05, -0.04, 0.03]
+SMC_JAX = dict(injected=0.07539442926645279, after_reg=0.022825060412287712,
+               after_smc=(0.01023662555962801, 0.009596461430191994,
+                          0.005447890609502792))
+SMC_PARTICLES, SMC_ITERS, SMC_RUNS = 256, 16, 3
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -300,12 +349,17 @@ def profile_summary(fn, best_wall) -> dict:
 
 def synced(fn, out: dict, name: str):
     """fn() between two synchronises; its host wall (s) goes to out[name]."""
+    r, out[name] = timed(fn)
+    return r
+
+
+def timed(fn):
+    """(fn(), host wall s), synchronised before and after."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = fn()
     torch.cuda.synchronize()
-    out[name] = time.perf_counter() - t0
-    return r
+    return r, time.perf_counter() - t0
 
 
 def count_syncs(fn):
@@ -322,7 +376,8 @@ def count_syncs(fn):
             torch.cuda.set_sync_debug_mode("default")
     where = {}
     for w in caught:
-        if "synchroniz" in str(w.message):
+        # (the mode's own "prototype feature" notice is not a call)
+        if "called a synchronizing CUDA operation" in str(w.message):
             key = f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
             where[key] = where.get(key, 0) + 1
     return r, sum(where.values()), where
@@ -809,6 +864,269 @@ def mapping_phase(pts, cols, valid, ccfg, dev, kind, card):
         f"carved cells {p_carved:.4f}")
     check(p_hit > p_carved + 0.1, f"[8] occupancy hit {p_hit} not above "
                                   f"carved {p_carved} + 0.1")
+    return seed, kp, calib["depth_s20"], scans, rcfg
+
+
+def nuts_row(samples, acc, eps, wall, cfg, seed) -> dict:
+    """One NUTS run's numbers, with nuts.COUNTS of that run."""
+    from gp_compressor_tpu_torch.inference import hmc, nuts
+
+    c = nuts.COUNTS
+    n_steps = cfg.num_warmup + cfg.num_samples
+    ess = hmc.effective_sample_size(samples)
+    s = samples.double().reshape(-1, 3)
+    check(c["reads"] <= math.ceil(c["iterations"] / nuts.BLOCK),
+          f"[9] NUTS: {c['reads']} reads in {c['iterations']} iterations")
+    return {
+        "chains": cfg.num_chains, "seed": seed, "warmup": cfg.num_warmup,
+        "samples": cfg.num_samples, "wall_s": wall,
+        "samples_per_s": cfg.num_chains * cfg.num_samples / wall,
+        "accept": float(acc.mean()),
+        "max_rhat": float(hmc.split_rhat(samples).max()),
+        "ess": ess.tolist(), "min_ess_per_s": float(ess.min()) / wall,
+        "theta_mean": s.mean(0).tolist(), "theta_std": s.std(0).tolist(),
+        "chain_means": samples.double().mean(1).tolist(),
+        "step_size": eps.tolist(),
+        "leapfrogs_per_transition": float(c["leapfrogs"]) / c["transitions"],
+        "max_leapfrogs": int(c["max_leapfrogs"]),
+        "lockstep_iterations_per_transition": c["iterations"] / n_steps,
+        "reads_per_transition": c["reads"] / n_steps,
+        "step_size_search_reads": c["find_reads"]}
+
+
+def nuts_rows(logpost, dev, kind, card):
+    """The 4- and 16-chain NUTS rows (bench.py:373-433) with their guards.
+    Returns the 4-chain run's (last draws [4, 3], step sizes [4])."""
+    from gp_compressor_tpu_torch.config import HMCConfig
+    from gp_compressor_tpu_torch.inference import nuts
+
+    theta0 = torch.tensor([math.log(100.0), 0.0, math.log(0.1)], device=dev)
+    out = None
+    for C, seed in ((4, 7), (16, 8)):
+        cfg = HMCConfig(num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES[C],
+                        num_chains=C)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        th0 = theta0 + 0.2 * torch.randn((C, 3), generator=g, device=dev)
+        nuts.reset_counts()
+        (samples, acc, eps), wall = timed(lambda: nuts.nuts_sample_chains(
+            logpost, th0, cfg, generator=g))
+        r = nuts_row(samples, acc, eps, wall, cfg, seed)
+        say(f"[9] NUTS {C} chains on {kind} ({card}): {json.dumps(r)}")
+        if C == 4:
+            out = samples[:, -1], eps
+        a = NUTS_JAX[C]
+        # the posterior means agree within 5 combined Monte Carlo standard
+        # errors (std / sqrt(ESS) of each run): a chance failure is < 1e-6
+        # per dimension
+        for d in range(3):
+            tol = 5.0 * math.sqrt(a["std"][d] ** 2 / a["ess"][d]
+                                  + r["theta_std"][d] ** 2 / r["ess"][d])
+            check(abs(r["theta_mean"][d] - a["mean"][d]) <= tol,
+                  f"[9] NUTS {C}: theta[{d}] mean {r['theta_mean'][d]} not "
+                  f"within {tol} of the JAX anchor's {a['mean'][d]}")
+        # dual averaging aims at 0.8; 50 warmup steps leave it above (the
+        # anchor: 0.93)
+        check(0.6 <= r["accept"] <= 0.99, f"[9] NUTS {C}: accept "
+              f"{r['accept']} outside [0.6, 0.99]")
+        # 50 warmup transitions from the reference constants leave a chain
+        # in transit now and then (the JAX package's 16-chain runs: two of
+        # nine above 1.1, at 1.23 and 1.27): the R-hat against 1.1 or the
+        # worst of the JAX package's runs
+        worst = max((a["max_rhat"],) + (NUTS16_RHAT_JAX if C == 16 else ()))
+        check(r["max_rhat"] <= max(1.1, worst),
+              f"[9] NUTS {C}: max split-R-hat {r['max_rhat']}")
+    # the reads are the only synchronising calls of a transition
+    theta, eps = out
+    nuts.reset_counts()
+    _, n_sync, where = count_syncs(lambda: nuts.nuts_step(
+        logpost, theta, eps, torch.ones_like(theta), generator=g))
+    say(f"[9] one NUTS transition of 4 chains: {n_sync} synchronising calls "
+        f"({json.dumps(where)}), {nuts.COUNTS['reads']} stop-flag reads in "
+        f"{nuts.COUNTS['iterations']} lockstep leapfrogs (block "
+        f"{nuts.BLOCK})")
+    check(n_sync == nuts.COUNTS["reads"], "[9] a NUTS transition "
+          "synchronised outside its stop-flag reads")
+    step = lambda: nuts.nuts_step(logpost, theta, eps, torch.ones_like(theta),
+                                  generator=g)
+    nuts.reset_counts()
+    _, w = timed(step)
+    it = nuts.COUNTS["iterations"]
+    nuts.reset_counts()
+    prof = profile_summary(step, w)
+    prof["lockstep_iterations"] = nuts.COUNTS["iterations"]
+    prof["kernels_per_iteration"] = prof["device_kernels"] / max(
+        nuts.COUNTS["iterations"], 1)
+    say(f"[9] one NUTS transition of 4 chains profiled on {kind} ({card}), "
+        f"unprofiled wall {w * 1e3:.2f} ms for {it} iterations: "
+        f"{json.dumps(prof)}")
+    return out
+
+
+def bayes_phase(pts, cols, valid, ccfg, comp, smc_ctx, dev, kind, card):
+    """Phase 9: the Bayesian rows with their guards, and the card against
+    the CPU with the same draws."""
+    from gp_compressor_tpu_torch.config import SMCConfig
+    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+    from gp_compressor_tpu_torch.geometry import transforms
+    from gp_compressor_tpu_torch.inference import hmc, vi
+    from gp_compressor_tpu_torch.testing import bayes_case
+    from gp_compressor_tpu_torch.workloads import (compressor, mapping,
+                                                   registration)
+
+    t_phase = time.perf_counter()
+    walls = {}
+    Xc, yc, mc = compressor.calib_subsample(comp.patch, 16, 48)
+    logpost = hmc.make_patch_logpost(Xc, yc, mc.to(Xc.dtype))
+    t0 = time.perf_counter()
+    theta_last, eps = nuts_rows(logpost, dev, kind, card)
+    walls["nuts"] = time.perf_counter() - t0
+
+    # ---- ADVI from the multi-start MAP mode
+    theta0 = torch.tensor([math.log(100.0), 0.0, math.log(0.1)], device=dev)
+    theta_map, _ = hmc.map_estimate_multi(logpost, theta0, steps=150, lr=0.1,
+                                          n_starts=4)
+    g = torch.Generator(device=dev).manual_seed(3)
+    res, wall = timed(lambda: vi.fit_advi(logpost, theta_map,
+                                          steps=ADVI_STEPS, generator=g))
+    plateaued = bool(vi.elbo_plateaued(res.elbo_trace))
+    mean = res.mean.tolist()
+    row = {"steps": ADVI_STEPS, "wall_s": wall,
+           "steps_per_s": ADVI_STEPS / wall, "plateaued": plateaued,
+           "mean": mean, "log_std": res.log_std.tolist(),
+           "mode_sigmaf_sq": math.exp(mean[0]), "mode_l_sq": math.exp(mean[1]),
+           "final_elbo": float(res.elbo_trace[-20:].mean()),
+           "map_theta": theta_map.tolist()}
+    say(f"[9] ADVI on {kind} ({card}): {json.dumps(row)}")
+    check(plateaued == ADVI_JAX["plateaued"], "[9] ADVI plateau differs "
+          "from the JAX anchor's")
+    # Adam at lr 0.05 on an 8-sample ELBO gradient jitters the mean by a
+    # few hundredths; 0.15 is ~2 posterior std on the tightest axis
+    check(all(abs(m - a) <= 0.15 for m, a in zip(mean, ADVI_JAX["mean"])),
+          f"[9] ADVI mean {mean} not within 0.15 of {ADVI_JAX['mean']}")
+
+    # ---- the HMC-calibrated compress, its HMC timed inside the call
+    hmc_walls, sample_chains = [], hmc.hmc_sample_chains
+
+    def timed_hmc(*a, **k):
+        r, w = timed(lambda: sample_chains(*a, **k))
+        hmc_walls.append(w)
+        return r
+
+    n0 = sogp_train.LAUNCHES
+    hmc.hmc_sample_chains = timed_hmc
+    try:
+        (comp_h, kph, s20h, cal), wall = timed(
+            lambda: compressor.compress_calibrated(
+                pts, cols, valid, ccfg, method="hmc",
+                calib_steps=HMC_CAL_STEPS))
+    finally:
+        hmc.hmc_sample_chains = sample_chains
+    launches = sogp_train.LAUNCHES - n0
+    hp = [float(kph.sigmaf_sq), float(kph.l_sq), s20h]
+    rmse = float(compressor.reconstruction_rmse(comp_h, cal, depth_kp=kph,
+                                                depth_s20=s20h))
+    row = {"calib_steps": HMC_CAL_STEPS, "sigmaf_sq": hp[0], "l_sq": hp[1],
+           "s20": hp[2], "rmse_m": rmse, "kernel_launches": launches,
+           "wall_s": wall, "hmc_wall_s": hmc_walls[0],
+           "hmc_share": hmc_walls[0] / wall,
+           "chain_leapfrogs": 2 * 2 * HMC_CAL_STEPS * 16}
+    walls["hmc_calibrated"] = wall
+    say(f"[9] compress_calibrated(method='hmc') on {kind} ({card}): "
+        f"{json.dumps(row)} (JAX anchor {HMC_CAL_JAX})")
+    check(launches == 2, f"[9] {launches} kernel launches, expected 2")
+    check(hp[0] < 10.0 and hp[2] < 0.1, f"[9] calibrated values {hp} at the "
+          "reference scale")
+    # the port calibrates in float64 (compress_calibrated's default), the
+    # anchor is JAX's float32 run: both at the cm-scale mode, where the
+    # posterior mean of 2 chains x 400 draws has a Monte Carlo error of a
+    # few hundredths in log space; 0.3 leaves room for a slow chain
+    for label, v, a in zip(("sigmaf_sq", "l_sq", "s20"), hp, HMC_CAL_JAX):
+        check(math.isfinite(v) and abs(math.log(v / a)) <= 0.3,
+              f"[9] {label} {v} not within 0.3 of the JAX anchor {a} in log "
+              "space")
+    check(rmse <= RMSE_MAX, f"[9] HMC-calibrated RMSE {rmse} above "
+          f"{RMSE_MAX}")
+    # one warmup and one sampling step (32 batched leapfrogs) profiled
+    from gp_compressor_tpu_torch.config import HMCConfig
+    lp, th0 = compressor._calib_logpost(compressor.project(
+        pts, cols, valid, ccfg), ccfg, 32, 64, torch.float64)
+    two = HMCConfig(num_warmup=1, num_samples=1, num_chains=2)
+    run2 = lambda: hmc.hmc_sample_chains(lp, torch.stack([th0, th0 + 0.3]),
+                                         two, generator=g)
+    _, w = timed(run2)
+    prof = profile_summary(run2, w)
+    prof["kernels_per_leapfrog"] = prof["device_kernels"] / 32
+    say(f"[9] two HMC steps (32 leapfrogs of 2 chains on the 32 x 64 bank) "
+        f"profiled on {kind} ({card}), unprofiled wall {w * 1e3:.2f} ms: "
+        f"{json.dumps(prof)}")
+
+    # ---- SMC pose refinement against phase 8's seed map
+    seed, kp, s20, scans, rcfg = smc_ctx
+    scan = scans[1]
+    R_true = transforms.euler_xyz(torch.tensor(SMC_ANG, device=dev))
+    moved = transforms.apply(scan[0], R_true, torch.tensor(SMC_T, device=dev))
+    err = lambda p: float(torch.linalg.norm(p - scan[0], dim=1).mean())
+    rst, out_reg = registration.register(
+        mapping._map_as_compressed(seed, ccfg), moved, scan[1], scan[2], ccfg,
+        rcfg, depth_kp=kp, depth_s20=s20)
+    scfg = SMCConfig(num_particles=SMC_PARTICLES, pose_proposal_std_t=0.012,
+                     pose_proposal_std_r=0.004)
+
+    def refine(g):
+        return mapping.smc_refine_pose(seed, out_reg, scan[1], scan[2], ccfg,
+                                       scfg, n_iters=SMC_ITERS, depth_kp=kp,
+                                       depth_s20=s20, generator=g)
+
+    smc_walls, errs = [], []
+    for k in range(SMC_RUNS):
+        ((R2, t2), _, trace), w = timed(lambda: refine(
+            torch.Generator(device=dev).manual_seed(4 + k)))
+        smc_walls.append(w)
+        errs.append(err(transforms.apply(out_reg, R2, t2)))
+    g = torch.Generator(device=dev).manual_seed(7)
+    _, n_sync, where = count_syncs(lambda: refine(g))
+    wall = sorted(smc_walls)[len(smc_walls) // 2]
+    row = {"particles": SMC_PARTICLES, "iters": SMC_ITERS,
+           "walls_s": smc_walls,
+           "particles_per_s": SMC_PARTICLES * SMC_ITERS / wall,
+           "injected_err_m": err(moved), "after_reg_budget_err_m": err(out_reg),
+           "reg_steps": int(rst.step_nbr), "after_smc_err_m": errs,
+           "synchronising_calls_in_smc_refine_pose": n_sync,
+           "n_patches_seed": int(seed.n_patches)}
+    say(f"[9] SMC on {kind} ({card}): {json.dumps(row)} (JAX anchor "
+        f"{json.dumps(SMC_JAX)})")
+    check(n_sync == 0, f"[9] smc_refine_pose synchronised: {where}")
+    check(abs(row["injected_err_m"] - SMC_JAX["injected"])
+          <= 1e-3 * SMC_JAX["injected"], "[9] injected error differs")
+    check(abs(row["after_reg_budget_err_m"] - SMC_JAX["after_reg"])
+          <= 0.1 * SMC_JAX["after_reg"], "[9] error after the registration "
+          "budget not within 10% of the JAX anchor's")
+    check(max(errs) < row["after_reg_budget_err_m"], "[9] SMC did not "
+          "reduce the error left by the registration budget")
+    # the runs' means agree within 4 standard errors of the difference of
+    # two 3-run means (each run's spread from its own sample), at least 2 mm
+    sa = float(torch.tensor(SMC_JAX["after_smc"]).double().std())
+    sp = float(torch.tensor(errs).double().std())
+    tol = max(4.0 * math.sqrt((sa ** 2 + sp ** 2) / SMC_RUNS), 2e-3)
+    ma = sum(SMC_JAX["after_smc"]) / SMC_RUNS
+    check(abs(sum(errs) / SMC_RUNS - ma) <= tol, f"[9] SMC error {errs} not "
+          f"within {tol} of the JAX anchor's mean {ma}")
+
+    # ---- the card against the CPU, float64, the same draws
+    t0 = time.perf_counter()
+    par = bayes_case.device_parity(Xc, yc, mc.to(Xc.dtype), theta_last, dev,
+                                   eps=float(eps.mean()), advi_steps=5)
+    par.update(bayes_case.smc_parity(seed, out_reg, scan[1], scan[2], ccfg,
+                                     dev, depth_kp=kp, depth_s20=s20))
+    say(f"[9] card against CPU, float64, same draws "
+        f"({time.perf_counter() - t0:.2f} s): {json.dumps(par)}")
+    check(par["nuts_leapfrogs_cpu"] == par["nuts_leapfrogs_device"],
+          "[9] NUTS leapfrog counts differ between the card and the CPU")
+    for k in ("nuts_theta", "nuts_accept", "hmc", "advi", "smc_pose",
+              "smc_particles"):
+        check(par[k] <= 1e-9, f"[9] {k}: card and CPU differ by {par[k]}")
+    walls["phase"] = time.perf_counter() - t_phase
+    say(f"[9] phase walls (s): {json.dumps(walls)}")
 
 
 def main() -> int:
@@ -1044,7 +1362,10 @@ def main() -> int:
                        comp, dev, kind, card)
 
     # ---- 8. the mapping stream, and the kernel at its second call site
-    mapping_phase(pts, cols, valid, ccfg, dev, kind, card)
+    smc_ctx = mapping_phase(pts, cols, valid, ccfg, dev, kind, card)
+
+    # ---- 9. the Bayesian layer
+    bayes_phase(pts, cols, valid, ccfg, comp, smc_ctx, dev, kind, card)
 
     # one D=1 and one D=3 launch per round trip: ms and plain_ms are their sum
     kernels = [{

@@ -8,10 +8,14 @@ JAX package, so each function's counterpart sits at the same place:
   * `models/`     the batched Csató–Opper sparse online GP (plain torch)
   * `cuda_kernels/` + `csrc/`  the fused SOGP training kernel in CUDA C++
   * `ops/linalg_f32.py`, `models/exact_gp.py`, `inference/hmc.py`
-                  the exact-GP marginal posterior and its MAP ascent
+                  the exact-GP marginal posterior, its MAP ascent, HMC
+                  and the chain diagnostics
+  * `inference/nuts.py`, `vi.py`, `smc.py`  NUTS, ADVI and SMC over
+                  poses (chains and particles as batch dims)
   * `workloads/compressor.py`  compress -> decompress round trip, plain
-                  and calibrated
+                  and calibrated (MAP or HMC)
   * `workloads/registration.py`  scan-to-map registration
+  * `workloads/mapping.py`  the mapping stream and SMC pose refinement
 
 The package imports torch and numpy only — never jax, and nothing from
 `gp_compressor_tpu` (whose `config` imports `jax.numpy`).

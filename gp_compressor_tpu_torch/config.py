@@ -134,6 +134,16 @@ class HMCConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SMCConfig:
+    """SMC over scan poses for mapping."""
+
+    num_particles: int = 64
+    ess_threshold: float = 0.5
+    pose_proposal_std_t: float = 0.01
+    pose_proposal_std_r: float = 0.005
+
+
+@dataclasses.dataclass(frozen=True)
 class CompressorConfig:
     patch: PatchConfig = dataclasses.field(default_factory=PatchConfig)
     depth_gp: GPConfig = dataclasses.field(default_factory=GPConfig)

@@ -1,15 +1,16 @@
-"""Type-II MAP calibration of the GP kernel hyperparameters.
+"""Calibration of the GP kernel hyperparameters: MAP and HMC.
 
-The port of the MAP half of `gp_compressor_tpu.inference.hmc`: the exact-GP
-marginal log posterior over a bank of patches and its gradient ascent
-(single and multi-start). The HMC / NUTS samplers arrive with the Bayesian
-slice.
+The port of `gp_compressor_tpu.inference.hmc`: the exact-GP marginal log
+posterior over a bank of patches, its gradient ascent (single and
+multi-start), fixed-length HMC with dual-averaging step-size warmup
+(chains as a batch dim), and the chain diagnostics split-R-hat and ESS.
 
 theta parameterization: unconstrained logs, theta = (ln sigmaf_sq, ln l_sq,
 ln s20), with any leading batch dims (the starts of the multi-start ascent
-are one batch dim). The ascents are Python loops over steps that never
-read the device: each step is one forward and one backward of the batched
-posterior and an Adam update, all queued on the stream.
+and the chains of the sampler are one batch dim). The ascents and the
+sampler are Python loops over steps that never read the device: each step
+is queued on the stream. The sampler's randomness is a `torch.Generator`
+(seed 0 when None) or the draws themselves (`HMCDraws`).
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from gp_compressor_tpu_torch.inference.nuts import _safe_vag
+from gp_compressor_tpu_torch.config import HMCConfig
+from gp_compressor_tpu_torch.inference.nuts import (_generator, _safe_vag,
+                                                    _sanitize, _vag,
+                                                    dual_average)
 from gp_compressor_tpu_torch.ops import linalg_f32
 from gp_compressor_tpu_torch.ops.kernels import sqdist
 
@@ -157,3 +161,145 @@ def map_estimate_multi(logpost: Callable, theta0: torch.Tensor,
                                     torch.full_like(lps, -torch.inf)))
     # a 1-element index keeps the choice on the device
     return thetas[best.reshape(1)][0], lps
+
+
+# ---------------------------------------------------------------------------
+# HMC with dual-averaging warmup
+# ---------------------------------------------------------------------------
+
+class HMCChainState(NamedTuple):
+    """Per-chain sampler state, each field with a leading chain dim."""
+
+    theta: torch.Tensor
+    logp: torch.Tensor
+    grad: torch.Tensor
+    step_size: torch.Tensor
+    # dual averaging statistics (Hoffman & Gelman 2014, eq. 6)
+    h_bar: torch.Tensor
+    log_eps_bar: torch.Tensor
+    mu: torch.Tensor
+    inv_mass: torch.Tensor
+    accept_prob: torch.Tensor
+
+
+class HMCDraws(NamedTuple):
+    """The draws of a whole run of C chains over T = num_warmup +
+    num_samples steps: step m of chain c uses z[c, m] and u[c, m]."""
+
+    z: torch.Tensor            # [C, T, dim] momentum normals (unit metric)
+    u: torch.Tensor            # [C, T] uniforms of the accept test
+
+
+def _leapfrog(logpost, theta, p, grad, eps, inv_mass, n_steps):
+    """n_steps leapfrogs of step eps [C]. Returns (theta, p, sanitized
+    grad, the raw logpost value at the last point)."""
+    lp = None
+    for _ in range(n_steps):
+        p = p + (0.5 * eps)[:, None] * grad
+        theta = theta + eps[:, None] * inv_mass * p
+        lp, g = _vag(logpost, theta)
+        grad = _sanitize(lp, g)[1]
+        p = p + (0.5 * eps)[:, None] * grad
+    if lp is None:
+        with torch.no_grad():
+            lp = logpost(theta)
+    return theta, p, grad, lp
+
+
+def hmc_warmup_and_sample(logpost: Callable, theta0: torch.Tensor,
+                          cfg: HMCConfig, n_leapfrog: int = 16,
+                          generator: Optional[torch.Generator] = None,
+                          draws: Optional[HMCDraws] = None):
+    """HMC for chains theta0 [C, dim]: num_warmup dual-averaging steps, then
+    num_samples steps at exp(log_eps_bar) (the averages keep updating at
+    m = num_warmup, and each step runs at the previous average, as in the
+    JAX package). The accept test takes logpost at the proposal, not its
+    sanitized value. Returns (samples [C, num_samples, dim], mean accept
+    probability [C], final step size [C])."""
+    C, dim = theta0.shape
+    dt, dev = theta0.dtype, theta0.device
+    T = cfg.num_warmup + cfg.num_samples
+    if draws is None:
+        g = _generator(generator, dev)
+        draws = HMCDraws(
+            torch.randn((C, T, dim), generator=g, dtype=dt, device=dev),
+            torch.rand((C, T), generator=g, dtype=dt, device=dev))
+    lp0, g0 = _safe_vag(logpost)(theta0)
+    eps0 = torch.full((C,), cfg.init_step_size, dtype=dt, device=dev)
+    zero = torch.zeros((C,), dtype=dt, device=dev)
+    st = HMCChainState(
+        theta=theta0, logp=lp0, grad=g0, step_size=eps0, h_bar=zero,
+        log_eps_bar=zero, mu=torch.log(10.0 * eps0),
+        inv_mass=torch.ones((C, dim), dtype=dt, device=dev), accept_prob=zero)
+
+    def step(st: HMCChainState, t: int, adapt: bool, m: int):
+        p0 = draws.z[:, t] / torch.sqrt(st.inv_mass)
+        th, p, g, lp_new = _leapfrog(logpost, st.theta, p0, st.grad,
+                                     st.step_size, st.inv_mass, n_leapfrog)
+        h0 = st.logp - 0.5 * torch.sum(st.inv_mass * p0 * p0, -1)
+        h1 = lp_new - 0.5 * torch.sum(st.inv_mass * p * p, -1)
+        log_acc = torch.clamp(h1 - h0, max=0.0)
+        acc_p = torch.where(torch.isfinite(log_acc), torch.exp(log_acc), 0.0)
+        accept = draws.u[:, t] < acc_p
+        h_bar, log_eps, log_eps_bar = dual_average(
+            m, acc_p, cfg.target_accept, st.mu, st.h_bar, st.log_eps_bar,
+            weak_carry=adapt)
+        return st._replace(
+            theta=torch.where(accept[:, None], th, st.theta),
+            logp=torch.where(accept, lp_new, st.logp),
+            grad=torch.where(accept[:, None], g, st.grad),
+            step_size=torch.exp(log_eps if adapt else st.log_eps_bar),
+            h_bar=h_bar, log_eps_bar=log_eps_bar, accept_prob=acc_p)
+
+    for m in range(cfg.num_warmup):
+        st = step(st, m, True, m)
+    st = st._replace(step_size=torch.exp(st.log_eps_bar))
+    samples, accs = [], []
+    for i in range(cfg.num_samples):
+        st = step(st, cfg.num_warmup + i, False, cfg.num_warmup)
+        samples.append(st.theta)
+        accs.append(st.accept_prob)
+    return torch.stack(samples, 1), torch.mean(torch.stack(accs, 1), 1), \
+        st.step_size
+
+
+def hmc_sample_chains(logpost: Callable, theta0: torch.Tensor,
+                      cfg: HMCConfig, n_leapfrog: int = 16,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[HMCDraws] = None):
+    """theta0 [C, dim] -> (samples [C, num_samples, dim], mean accept [C],
+    step size [C]); the chains are one batch dim of every step."""
+    return hmc_warmup_and_sample(logpost, theta0, cfg, n_leapfrog,
+                                 generator=generator, draws=draws)
+
+
+# ---------------------------------------------------------------------------
+# diagnostics
+# ---------------------------------------------------------------------------
+
+def split_rhat(samples: torch.Tensor) -> torch.Tensor:
+    """Split-R-hat per dimension. samples: [C, T, dim]."""
+    C, T, dim = samples.shape
+    half = T // 2
+    x = torch.cat([samples[:, :half], samples[:, half:2 * half]], dim=0)
+    cm = torch.mean(x, dim=1)                        # [2C, dim]
+    gv = torch.var(cm, dim=0, unbiased=True)         # between
+    wv = torch.mean(torch.var(x, dim=1, unbiased=True), dim=0)
+    var_est = (half - 1) / half * wv + gv
+    return torch.sqrt(var_est / wv)
+
+
+def effective_sample_size(samples: torch.Tensor,
+                          max_lag: int = 100) -> torch.Tensor:
+    """Bulk ESS per dimension via the initial positive sequence: the
+    autocorrelation is cut at its first value below -0.05. [C, T, dim]."""
+    C, T, dim = samples.shape
+    x = samples - torch.mean(samples, dim=1, keepdim=True)
+    max_lag = min(max_lag, T - 1)
+    ac = torch.stack([
+        torch.mean(torch.sum(x[:, :T - lag] * x[:, lag:], dim=1), dim=0) / T
+        for lag in range(max_lag)])                  # [max_lag, dim]
+    rho = ac / ac[0]
+    positive = torch.cumprod((rho > -0.05).to(rho.dtype), dim=0)
+    tau = 1.0 + 2.0 * torch.sum(rho * positive, dim=0)
+    return C * T / torch.clamp(tau, min=1.0)

@@ -18,6 +18,8 @@ import torch
 from gp_compressor_tpu_torch import config as config_mod
 from gp_compressor_tpu_torch.geometry.patches import PatchBatch
 from gp_compressor_tpu_torch.geometry.voxel import VoxelGrid
+from gp_compressor_tpu_torch.inference.smc import ParticleState
+from gp_compressor_tpu_torch.inference.vi import VIResult
 from gp_compressor_tpu_torch.models.sparse_gp import SOGPState
 from gp_compressor_tpu_torch.workloads.compressor import CompressedCloud
 from gp_compressor_tpu_torch.workloads.mapping import MapState
@@ -67,6 +69,19 @@ def registration_config_from_dict(d) -> config_mod.RegistrationConfig:
 def hmc_config_from_dict(d) -> config_mod.HMCConfig:
     """HMCConfig from `dataclasses.asdict` of the JAX config."""
     return _config(config_mod.HMCConfig, d)
+
+
+def smc_config_from_dict(d) -> config_mod.SMCConfig:
+    """SMCConfig from `dataclasses.asdict` of the JAX config."""
+    return _config(config_mod.SMCConfig, d)
+
+
+def particle_state_from_numpy(d, device=None) -> ParticleState:
+    return _tuple(ParticleState, d, device)
+
+
+def vi_result_from_numpy(d, device=None) -> VIResult:
+    return _tuple(VIResult, d, device)
 
 
 def registration_state_from_numpy(d, device=None) -> RegistrationState:

@@ -338,26 +338,47 @@ def compress_calibrated(points, colors, valid, cfg: CompressorConfig,
                         use_kernel: Optional[bool] = None, method: str = "map",
                         calib_patches: int = 32, calib_points: int = 64,
                         calib_steps: int = 400, calib_lr: float = 0.1,
-                        calib_dtype: torch.dtype = torch.float32,
-                        generator: torch.Generator = None, perm=None):
-    """The staged calibrated compress: MAP over the exact-GP marginal of a
-    bank subsample, then training with a config built from the calibrated
-    values (read to the host here, by design). The banks are built in
-    native order and each bank is permuted before training, by `perm`
+                        calib_dtype: torch.dtype = torch.float64,
+                        generator: torch.Generator = None, perm=None,
+                        hmc_draws=None):
+    """The staged calibrated compress: a calibration over the exact-GP
+    marginal of a bank subsample, then training with a config built from
+    the calibrated values (read to the host here, by design). method "map"
+    (the default, deterministic, and any name but "hmc"): Adam ascent from
+    the reference constants. method "hmc": 2-chain HMC (num_warmup = num_samples = calib_steps, 16
+    leapfrogs) from the reference constants and from them + 0.3, theta
+    the mean of both chains' samples; its draws are `hmc_draws`
+    (inference.hmc.HMCDraws) or come from `generator`. The banks are built
+    in native order and each bank is permuted before training, by `perm`
     ((depth, rgb) [B, P], see train) or by permutations drawn from
-    `generator` (seed 0 when None). method "hmc" arrives with the
-    Bayesian slice. Returns (CompressedCloud, depth RBFParams, calibrated
-    s20, calibrated config)."""
+    `generator` (seed 0 when None) after the HMC's draws.
+
+    The calibration runs in float64 by default (the JAX package's choice
+    where x64 is on; the card runs it at the same speed, its cost being
+    launches): far from its mode the exact-GP posterior of the subsample
+    is so ill-conditioned that float32 log posteriors err by thousands of
+    nats, and on the card a float32 HMC chain started at the reference
+    constants reached a local mode (sigma_f^2 ~5, s20 at the noise floor)
+    in every run measured. Returns (CompressedCloud, depth RBFParams,
+    calibrated s20, calibrated config)."""
+    from gp_compressor_tpu_torch.config import HMCConfig
     from gp_compressor_tpu_torch.inference import hmc
 
-    if method != "map":
-        raise NotImplementedError(f"calibration method {method!r} is not "
-                                  "ported")
     batch = project(points, colors, valid, cfg)
     logpost, theta0 = _calib_logpost(batch, cfg, calib_patches, calib_points,
                                      calib_dtype)
-    theta, _ = hmc.map_estimate(logpost, theta0, steps=calib_steps,
-                                lr=calib_lr)
+    if generator is None:
+        generator = torch.Generator(device=points.device).manual_seed(0)
+    if method == "hmc":
+        hcfg = HMCConfig(num_warmup=calib_steps, num_samples=calib_steps,
+                         num_chains=2)
+        samples, _, _ = hmc.hmc_sample_chains(
+            logpost, torch.stack([theta0, theta0 + 0.3]), hcfg,
+            generator=generator, draws=hmc_draws)
+        theta = torch.mean(samples.reshape(-1, 3), dim=0)
+    else:
+        theta, _ = hmc.map_estimate(logpost, theta0, steps=calib_steps,
+                                    lr=calib_lr)
     sf, l2, s20 = torch.exp(theta).unbind()
     dt = batch.X.dtype
     depth_kp = RBFParams(sigmaf_sq=sf.to(dt), l_sq=l2.to(dt))
@@ -368,8 +389,6 @@ def compress_calibrated(points, colors, valid, cfg: CompressorConfig,
         cfg.depth_gp, sigmaf_sq=float(sf), l_sq=float(l2), s20=float(s20),
         eps_tol=eps_cal))
     if perm is None:
-        if generator is None:
-            generator = torch.Generator(device=points.device).manual_seed(0)
         perm = bank_permutations(*batch.mask.shape, batch.X.device, generator)
     comp = train(batch, cal_cfg, depth_kp=depth_kp, use_kernel=use_kernel,
                  perm=perm)

@@ -8,6 +8,10 @@ a fresh plane fit, a ray-carving pass fills the probit channel's `free`
 mask, and every touched GP trains incrementally, through the fused CUDA
 kernel (`cuda_kernels.sogp_train`) for CUDA tensors.
 
+`smc_refine_pose` refines a scan's pose against the map with a particle
+filter (`inference.smc`), and `_map_as_compressed` is the map's
+registration view in leaf-key order.
+
 The map is a persistent `MapState` over a fixed world box: a dense
 key -> leaf table, padded patch banks, padded pending-evidence buffers and
 the dense claim tables, all of static shape; growth flips entries.
@@ -40,7 +44,7 @@ import numpy as np
 import torch
 
 from gp_compressor_tpu_torch.config import (CompressorConfig, MappingConfig,
-                                            RegistrationConfig)
+                                            RegistrationConfig, SMCConfig)
 from gp_compressor_tpu_torch.cuda_kernels import sogp_train
 from gp_compressor_tpu_torch.geometry import patches as patches_mod
 from gp_compressor_tpu_torch.geometry import rotation, transforms, voxel
@@ -599,6 +603,30 @@ def _map_view_gid(state: MapState, cfg: CompressorConfig) -> CompressedCloud:
                            rgb_gp=state.rgb_gp)
 
 
+def _map_as_compressed(state: MapState, cfg: CompressorConfig
+                       ) -> CompressedCloud:
+    """Registration view of the map in sorted-slot (leaf-key) order: every
+    bank gathered through leaf_ids, with the sorted-slot grid, so that
+    `registration.register` builds its own claim tables from it."""
+    B = state.rotations.shape[0]
+    dt, dev = state.means.dtype, state.means.device
+    ids = state.leaf_ids.long()
+    batch = patches_mod.PatchBatch(
+        grid=state.grid(cfg.patch.res), rotations=state.rotations[ids],
+        means=state.means[ids], rgb_means=state.rgb_means[ids],
+        W=state.W[ids],
+        X=torch.zeros((B, 0, 2), dtype=dt, device=dev),
+        y=torch.zeros((B, 0, 1), dtype=dt, device=dev),
+        rgb=torch.zeros((B, 0, 3), dtype=dt, device=dev),
+        mask=torch.zeros((B, 0), dtype=torch.bool, device=dev),
+        counts=torch.zeros((B,), dtype=I32, device=dev),
+        claims=torch.zeros((0,), dtype=I32, device=dev),
+        n_leaves=state.n_patches)
+    return CompressedCloud(
+        patch=batch, depth_gp=SOGPState(*[a[ids] for a in state.depth_gp]),
+        rgb_gp=SOGPState(*[a[ids] for a in state.rgb_gp]))
+
+
 def _zero_info(device):
     z = lambda: torch.zeros((), dtype=I32, device=device)
     return {"bank_dropped": z(), "pend_dropped": z(), "patch_overflow": z()}
@@ -737,6 +765,88 @@ def predict_occupancy(occ_states: SOGPState, cfg: CompressorConfig, Xstar,
                    l_sq=_full(l_sq, Xstar))
     mean, var = sparse_gp.predict_batch(kp, s20, occ_states, Xstar)
     return torch.special.ndtr(mean[..., 0] / torch.sqrt(1.0 + var))
+
+
+def smc_refine_pose(state: MapState, points, colors, valid,
+                    cfg: CompressorConfig, smc_cfg: SMCConfig,
+                    n_iters: int = 8, n_eval_points: int = 2048,
+                    depth_kp=None, depth_s20=None,
+                    generator: Optional[torch.Generator] = None,
+                    draws=None):
+    """SMC refinement of a scan pose against the map: a particle population
+    over 6-DoF pose perturbations, weighted by the GP log-density of a
+    subsample of the scan (n_eval_points points at evenly spaced indices)
+    under each particle's pose, resampled systematically and jittered for
+    n_iters steps (inference.smc). Unclaimed points score an outlier floor
+    (the log density of a ~3-sigma prior outlier), so that pushing points
+    out of claim range cannot raise the likelihood.
+
+    The map's grid predictions are computed once; each particle's points
+    are claimed against the map's stored tables (nm refreshed from its
+    frames and means), all particles' points in one claim call, and score
+    the nearest grid cell of their patch. Nothing is read back.
+    draws: (init normals [P, 6], inference.smc.SMCDraws with a leading
+    [n_iters] dim); else drawn from `generator` (seed 0 when None).
+    Returns ((R [3, 3], t [3]) of the final weighted-mean pose, the
+    particle state, the max log-weight of each step [n_iters])."""
+    from gp_compressor_tpu_torch.inference import smc as smc_mod
+
+    comp = _map_view_gid(state, cfg)
+    dt, dev = points.dtype, points.device
+    dkp, _ = default_params(cfg, dev)
+    dkp = dkp if depth_kp is None else depth_kp
+    d_s20 = cfg.depth_gp.s20 if depth_s20 is None else depth_s20
+    P = smc_cfg.num_particles
+    if draws is None:
+        g = smc_mod._generator(generator, dev)
+        init_normals = torch.randn((P, 6), generator=g, dtype=dt, device=dev)
+        steps = smc_mod.draw_steps(n_iters, P, dt, dev, g)
+    else:
+        init_normals, steps = draws
+
+    N = points.shape[0]
+    n = min(n_eval_points, N)
+    sel = torch.linspace(0, N - 1, n, dtype=torch.float64,
+                         device=dev).to(torch.int64)
+    pts_s, val_s = points[sel], valid[sel]
+
+    B = comp.patch.rotations.shape[0]
+    G = cfg.patch.sz ** 2
+    grid_uv = patches_mod.prediction_grid(cfg.patch, dt, dev)
+    dmean, dvar = sparse_gp.predict_batch(dkp, d_s20, comp.depth_gp,
+                                          grid_uv.expand(B, G, 2))
+    dmean = dmean[..., 0]                                    # [B, G]
+    tables = state.tables._replace(nm=torch.cat(
+        [state.rotations[:, :, 0], state.means], 1))
+    res = torch.as_tensor(cfg.patch.res, dtype=dt)
+    floor = -0.5 * torch.log(2 * torch.pi * (dkp.sigmaf_sq + d_s20)) - 4.5
+
+    def pose_loglik(poses):
+        R, t = smc_mod.pose_matrices(poses)
+        moved = torch.matmul(pts_s, R.transpose(1, 2)) + t[:, None, :]
+        claim, loc, claimed = registration.claim_with_tables(
+            tables, comp.patch.grid, moved.reshape(-1, 3),
+            val_s.repeat(poses.shape[0]), cfg.patch.res, out_fill=B)
+        gidx = torch.where(claimed, claim, 0).long()
+        cell = patches_mod.grid_cell(loc[:, 1:], res, cfg.patch.sz).long()
+        mu, var = dmean[gidx, cell], dvar[gidx, cell]
+        ll = -0.5 * torch.log(2 * torch.pi * var) \
+            - 0.5 * (loc[:, 0] - mu) ** 2 / var
+        ll = torch.where(claimed & val_s.repeat(poses.shape[0]), ll, floor)
+        return torch.sum(ll.reshape(poses.shape[0], -1), dim=1)
+
+    st = smc_mod.init_particles(smc_cfg, normals=init_normals)
+    trace = []
+    for i in range(n_iters):
+        st, mean_pose = smc_mod.smc_step(st, pose_loglik, smc_cfg, draws=
+                                         smc_mod.SMCDraws(steps.normals[i],
+                                                          steps.u0[i]))
+        trace.append(torch.max(st.log_weights))
+    if not n_iters:
+        mean_pose = torch.zeros(6, dtype=dt, device=dev)
+    R, t = smc_mod.pose_matrices(mean_pose[None])
+    return (R[0], t[0]), st, torch.stack(trace) if trace else \
+        torch.zeros((0,), dtype=dt, device=dev)
 
 
 def map_cloud(state: MapState, cfg: CompressorConfig, depth_kp=None,

@@ -17,12 +17,23 @@ the 300k-point `room_cloud(seed=0)` at the bench configuration
     of the two 150k-point scans, then the stream at those values (the seed
     scan, then one `add_clouds` of 4 scans alternating scan 1 and scan 0):
     n_patches, the one-sided chamfer RMSE from `map_cloud` to both scans,
-    non-finite map points, the summed drop counters, per-scan reg_steps.
+    non-finite map points, the summed drop counters, per-scan reg_steps;
+  * bayes (`bench.py:373-456,691-777` and `compressor.compress_calibrated`):
+    4- and 16-chain NUTS on the headline banks' 16 x 48 calibration
+    subsample (posterior mean, standard deviation and minimum ESS of theta,
+    accept, max split-R-hat), ADVI from the multi-start MAP mode (plateau,
+    mode), `compress_calibrated(method="hmc")` at 400 steps (sigma_f^2,
+    l^2, s20, in-sample RMSE), and the SMC row's three mean point errors;
+  * nuts_seeds: the 16-chain NUTS row at NUTS_SEEDS further seeds (keys
+    100 + i for the starts, 200 + i for the sampler): max split-R-hat and
+    the per-axis standard deviation of each run, the spread that one
+    anchor run cannot show.
 
     JAX_PLATFORMS=cpu python3 port_anchors.py [section ...]
 
-with sections among headline, calibrated, registration, mapping (all when
-none is named; registration needs calibrated and headline). It needs the
+with sections among headline, calibrated, registration, mapping, bayes,
+nuts_seeds (all when none is named; registration needs calibrated and
+headline). It needs the
 JAX package and a few GiB of host memory, and takes some minutes on the
 CPU; the port's machine does not run it.
 """
@@ -53,6 +64,8 @@ from gp_compressor_tpu.workloads import compressor, registration  # noqa: E402
 N_POINTS = 300_000
 ANG = [0.004, -0.003, 0.005]
 T_TRUE = [0.012, -0.009, 0.006]
+SMC_ANG = [0.012, -0.008, 0.010]          # bench.py:731-732
+SMC_T = [0.05, -0.04, 0.03]
 
 
 def bench_config():
@@ -122,6 +135,130 @@ def mapping_anchors(pts, cols, valid, cfg):
            for k, v in info.items()}}
 
 
+def _chains(samples, acc):
+    """Posterior summary of NUTS draws [C, T, 3]."""
+    from gp_compressor_tpu.inference import hmc
+
+    s = np.asarray(samples, np.float64)
+    return {"mean": s.reshape(-1, 3).mean(0).tolist(),
+            "std": s.reshape(-1, 3).std(0).tolist(),
+            "accept": float(jnp.mean(acc)),
+            "max_rhat": float(jnp.max(hmc.split_rhat(samples))),
+            "ess": np.asarray(hmc.effective_sample_size(samples)).tolist()}
+
+
+NUTS_SEEDS = 8
+
+
+def nuts_seed_anchors(comp):
+    """The 16-chain NUTS row (bench.py:414-433) at NUTS_SEEDS seeds."""
+    from gp_compressor_tpu.config import HMCConfig
+    from gp_compressor_tpu.inference import hmc, nuts
+
+    Xc, yc, mc = compressor.calib_subsample(comp.patch, 16, 48)
+    logpost = hmc.make_patch_logpost(Xc, yc, mc.astype(jnp.float32))
+    theta0 = jnp.asarray([np.log(100.0), 0.0, np.log(0.1)], jnp.float32)
+    run = jax.jit(lambda th, k: nuts.nuts_sample_chains(
+        logpost, th, k, HMCConfig(num_warmup=50, num_samples=100,
+                                  num_chains=16)))
+    out = []
+    for i in range(NUTS_SEEDS):
+        th0 = theta0[None, :] + 0.2 * jax.random.normal(
+            jax.random.key(100 + i), (16, 3), jnp.float32)
+        samples, _, _ = run(th0, jax.random.key(200 + i))
+        s = np.asarray(samples, np.float64)
+        out.append({"max_rhat": float(jnp.max(hmc.split_rhat(samples))),
+                    "std": s.reshape(-1, 3).std(0).tolist()})
+        print(json.dumps({"nuts_seed": i, **out[-1]}), flush=True)
+    return out
+
+
+def bayes_anchors(pts, cols, valid, cfg, comp):
+    """The Bayesian rows (float32): NUTS and ADVI on the headline banks'
+    subsample (bench.py:373-456), the HMC-calibrated compress, and the SMC
+    row (bench.py:691-777)."""
+    from gp_compressor_tpu.config import (HMCConfig, MappingConfig,
+                                          SMCConfig)
+    from gp_compressor_tpu.inference import hmc, nuts, vi
+    from gp_compressor_tpu.workloads import mapping
+
+    out = {}
+    Xc, yc, mc = compressor.calib_subsample(comp.patch, 16, 48)
+    logpost = hmc.make_patch_logpost(Xc, yc, mc.astype(jnp.float32))
+    theta0 = jnp.asarray([np.log(100.0), 0.0, np.log(0.1)], jnp.float32)
+    for C, kth, ks in ((4, 7, 2), (16, 8, 12)):
+        hcfg = HMCConfig(num_warmup=50, num_samples=100, num_chains=C)
+        th0 = theta0[None, :] + 0.2 * jax.random.normal(
+            jax.random.key(kth), (C, 3), jnp.float32)
+        samples, acc, _ = nuts.nuts_sample_chains(logpost, th0,
+                                                  jax.random.key(ks), hcfg)
+        out[f"nuts{C}"] = _chains(samples, acc)
+        print(json.dumps({f"nuts{C}": out[f"nuts{C}"]}), flush=True)
+    theta_map, _ = hmc.map_estimate_multi(logpost, theta0, steps=150,
+                                          lr=0.1, n_starts=4)
+    res = vi.fit_advi(logpost, theta_map, jax.random.key(4), steps=300)
+    out["advi"] = {"plateaued": bool(vi.elbo_plateaued(res.elbo_trace)),
+                   "mean": np.asarray(res.mean).tolist(),
+                   "log_std": np.asarray(res.log_std).tolist(),
+                   "final_elbo": float(jnp.mean(res.elbo_trace[-20:])),
+                   "map_theta": np.asarray(theta_map).tolist()}
+    print(json.dumps({"advi": out["advi"]}), flush=True)
+
+    comp_h, kph, s20h, cal = compressor.compress_calibrated(
+        pts, cols, valid, cfg, jax.random.key(0), method="hmc",
+        calib_steps=400)
+    out["hmc_calibrated"] = {
+        "calib_steps": 400, "sigmaf_sq": float(kph.sigmaf_sq),
+        "l_sq": float(kph.l_sq), "s20": float(s20h),
+        "rmse": float(compressor.reconstruction_rmse(
+            comp_h, cal, depth_kp=kph, depth_s20=s20h))}
+    print(json.dumps({"hmc_calibrated": out["hmc_calibrated"]}), flush=True)
+
+    # the SMC row
+    lo = np.asarray(jnp.min(pts, 0)) - 0.3
+    hi = np.asarray(jnp.max(pts, 0)) + 0.3
+    p99 = float(np.percentile(np.linalg.norm(np.asarray(pts), axis=1), 99))
+    steps = min(mapping.required_ray_steps(lo, hi, cfg.patch.res),
+                int(1.2 * p99 / cfg.patch.res) + 2)
+    mcfg = MappingConfig(min_points_new_patch=50, max_ray_steps=steps,
+                         carve_stride=8, drop_on_reg_cap=False, reg_stride=4)
+    rcfg = RegistrationConfig(max_steps=8, min_steps=2, step_mode="rprop",
+                              bank_points=64)
+    Ns = 150_000
+    scan0 = (pts[0::2][:Ns], cols[0::2][:Ns], valid[0::2][:Ns])
+    scan1 = (pts[1::2][:Ns], cols[1::2][:Ns], valid[1::2][:Ns])
+    _, kpc, s20c, _ = compressor.compress_decompress_calibrated(
+        *scan0, cfg, jax.random.key(5), calib_patches=32, calib_points=64,
+        calib_steps=150, calib_lr=0.1, calib_starts=4)
+    eps_c = cfg.depth_gp.eps_tol * kpc.sigmaf_sq / cfg.depth_gp.sigmaf_sq
+    state = mapping.map_init(cfg, mcfg, lo, hi, dtype=pts.dtype)
+    state, _, _, _ = mapping.add_cloud_fused(
+        state, *scan0, cfg, mcfg, jax.random.key(0), rcfg=rcfg,
+        depth_kp=kpc, depth_s20=s20c, depth_eps=eps_c)
+    R_true = transforms.euler_xyz(jnp.asarray(SMC_ANG, jnp.float32))
+    moved = transforms.apply(scan1[0], R_true,
+                             jnp.asarray(SMC_T, jnp.float32))
+    err = lambda p: float(jnp.mean(jnp.linalg.norm(p - scan1[0], axis=1)))
+    st, out_reg = registration.register(
+        mapping._map_as_compressed(state, cfg), moved, scan1[1], scan1[2],
+        cfg, rcfg, depth_kp=kpc, depth_s20=s20c)
+    scfg = SMCConfig(num_particles=256, pose_proposal_std_t=0.012,
+                     pose_proposal_std_r=0.004)
+    smc_err = []
+    for k in (4, 5, 6):
+        (R2, t2), _, _ = mapping.smc_refine_pose(
+            state, out_reg, scan1[1], scan1[2], cfg, scfg,
+            jax.random.key(k), n_iters=16, depth_kp=kpc, depth_s20=s20c)
+        smc_err.append(err(transforms.apply(out_reg, R2, t2)))
+    out["smc"] = {"injected_err_m": err(moved),
+                  "after_reg_budget_err_m": err(out_reg),
+                  "reg_steps": int(st.step_nbr),
+                  "after_smc_err_m": smc_err,
+                  "n_patches_seed": int(state.n_patches)}
+    print(json.dumps({"smc": out["smc"]}), flush=True)
+    return out
+
+
 def main(sections):
     t_start = time.time()
     cfg = bench_config()
@@ -134,7 +271,8 @@ def main(sections):
     if "mapping" in sections:
         out["mapping"] = mapping_anchors(pts, cols, valid, cfg)
         print(json.dumps({"mapping": out["mapping"]}), flush=True)
-    if not sections & {"headline", "calibrated", "registration"}:
+    if not sections & {"headline", "calibrated", "registration", "bayes",
+                       "nuts_seeds"}:
         out["seconds"] = time.time() - t_start
         out["jax"] = jax.__version__
         print(json.dumps(out), flush=True)
@@ -148,6 +286,15 @@ def main(sections):
         "rmse": float(compressor.reconstruction_rmse(comp, cfg)),
         "depth_bv_hist": hist(comp.depth_gp)}
     print(json.dumps(out["headline"]), flush=True)
+    if "bayes" in sections:
+        out["bayes"] = bayes_anchors(pts, cols, valid, cfg, comp)
+    if "nuts_seeds" in sections:
+        out["nuts_seeds"] = nuts_seed_anchors(comp)
+    if not sections & {"calibrated", "registration"}:
+        out["seconds"] = time.time() - t_start
+        out["jax"] = jax.__version__
+        print(json.dumps(out), flush=True)
+        return
 
     comp_c, kpc, s20c, _ = compressor.compress_decompress_calibrated(
         pts, cols, valid, cfg, jax.random.key(0), calib_patches=32,
@@ -201,4 +348,4 @@ def main(sections):
 
 if __name__ == "__main__":
     main(set(sys.argv[1:]) or {"headline", "calibrated", "registration",
-                               "mapping"})
+                               "mapping", "bayes", "nuts_seeds"})

@@ -383,10 +383,6 @@ def test_compress_calibrated_matches_jax():
     for f in ("sigmaf_sq", "l_sq", "s20", "eps_tol"):
         np.testing.assert_allclose(getattr(tcal.depth_gp, f),
                                    getattr(jcal.depth_gp, f), rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        tcomp.compress_calibrated(T(pts), T(cols),
-                                  torch.ones(N, dtype=torch.bool), _cfg(tcfg),
-                                  method="hmc")
 
 
 def _count_reads(monkeypatch):

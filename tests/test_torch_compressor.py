@@ -132,6 +132,9 @@ def test_port_imports_no_jax():
             "import gp_compressor_tpu_torch.ops.linalg_f32\n"
             "import gp_compressor_tpu_torch.models.exact_gp\n"
             "import gp_compressor_tpu_torch.inference.hmc\n"
+            "import gp_compressor_tpu_torch.inference.nuts\n"
+            "import gp_compressor_tpu_torch.inference.vi\n"
+            "import gp_compressor_tpu_torch.inference.smc\n"
             "import gp_compressor_tpu_torch.workloads.registration\n"
             "import gp_compressor_tpu_torch.workloads.mapping\n"
             "import gp_compressor_tpu_torch.testing.mapping_case\n"

@@ -32,7 +32,7 @@ def _assert_same_fields(j, t):
 @pytest.mark.parametrize("make", ["GPConfig", "PatchConfig", "KSVDConfig",
                                   "CompressorConfig", "rgb_gp_config",
                                   "rgb_ksvd_config", "RegistrationConfig",
-                                  "HMCConfig", "MappingConfig"])
+                                  "HMCConfig", "MappingConfig", "SMCConfig"])
 def test_config_defaults_match_jax(make):
     _assert_same_fields(getattr(jcfg, make)(), getattr(tcfg, make)())
 
@@ -53,7 +53,8 @@ def test_config_converts_from_jax_fields():
     got = convert.compressor_config_from_dict(dataclasses.asdict(mk(jcfg)))
     assert got == mk(tcfg)
     _assert_same_fields(mk(jcfg), got)
-    # the registration and HMC configs, with options off their defaults
+    # the registration, HMC and SMC configs, with options off their
+    # defaults
     kw = dict(step_mode="rprop", max_steps=80, max_motion=0.004,
               grad_tol_step_ref=0.1, bank_points=48)
     got = convert.registration_config_from_dict(
@@ -62,6 +63,12 @@ def test_config_converts_from_jax_fields():
     got = convert.hmc_config_from_dict(
         dataclasses.asdict(jcfg.HMCConfig(num_chains=2, num_warmup=40)))
     assert got == tcfg.HMCConfig(num_chains=2, num_warmup=40)
+    kw = dict(num_particles=256, pose_proposal_std_t=0.012,
+              pose_proposal_std_r=0.004)
+    got = convert.smc_config_from_dict(dataclasses.asdict(
+        jcfg.SMCConfig(**kw)))
+    assert got == tcfg.SMCConfig(**kw)
+    _assert_same_fields(jcfg.SMCConfig(**kw), got)
 
 
 def test_gp_config_rejects_too_few_slots():

@@ -6,7 +6,11 @@ banks and small banks at the calibrated hyperparameters (rules in
 gp_compressor_tpu_torch/testing/sogp_regimes.py), the mapping call site
 (the small mapping case's banks trained from the map's non-empty states,
 and one state non-zero off its active block, which takes the kernel's
-dense loop), and the kernel's inline division against IEEE division.
+dense loop), and the kernel's inline division against IEEE division;
+then the Bayesian layer on the card against the CPU with the same draws
+in float64 (a NUTS transition, HMC steps, ADVI steps, an SMC refinement
+step against the small mapping case's map), and compress_calibrated
+(method="hmc") launching the kernel twice.
 
 This file imports no JAX. Run it on a machine with a CUDA card:
 
@@ -266,3 +270,81 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):          # more slots than the kernel takes
         call(kp, big, sparse_gp.init_batch(big, X.shape[0], device=dev),
              X, Y, M)
+
+
+@pytest.fixture(scope="module")
+def small_map():
+    """The small mapping case's map after scan 0 (CPU, float64), the moved
+    scan 1 and the stream's hyperparameters."""
+    from gp_compressor_tpu_torch import config as c
+    from gp_compressor_tpu_torch.ops.kernels import RBFParams
+    from gp_compressor_tpu_torch.testing import mapping_case as case
+    from gp_compressor_tpu_torch.workloads import mapping
+
+    cfg = case.compressor_config(c, torch.float64)
+    mcfg = case.mapping_config(c)
+    st = mapping.map_init(cfg, mcfg, *case.BOX, dtype=torch.float64,
+                          pending_capacity=case.PENDING, device="cpu")
+    st, _ = mapping.map_insert(st, *(torch.from_numpy(a)
+                                     for a in case.scans()[0]), cfg, mcfg, 1)
+    f = lambda v: torch.tensor(v, dtype=torch.float64)
+    kp = RBFParams(f(case.CAL[0]), f(case.CAL[1]))
+    scan = tuple(torch.from_numpy(a) for a in case.moved_scans()[1])
+    return st, scan, cfg, dict(depth_kp=kp, depth_s20=f(case.CAL[2]))
+
+
+@pytest.mark.parametrize("eps", [0.25, 40.0], ids=["normal", "divergent"])
+def test_samplers_on_card_match_cpu(dev, eps):
+    """One NUTS transition (the same leapfrog counts), two HMC steps and
+    five ADVI steps, card against CPU in float64, within 1e-9."""
+    from gp_compressor_tpu_torch.testing import bayes_case
+
+    res = bayes_case.device_parity(*bayes_case.bank(), bayes_case.THETA0,
+                                   dev, eps=eps, max_depth=5,
+                                   prior=bayes_case.PRIOR)
+    assert res["nuts_leapfrogs_cpu"] == res["nuts_leapfrogs_device"]
+    for k in ("nuts_theta", "nuts_accept", "hmc", "advi"):
+        assert res[k] <= 1e-9, res
+
+
+def test_smc_refine_pose_on_card_matches_cpu(dev, small_map):
+    from gp_compressor_tpu_torch.testing import bayes_case
+
+    st, scan, cfg, calib = small_map
+    res = bayes_case.smc_parity(st, *scan, cfg, dev, num_particles=32,
+                                n_eval_points=256, **calib)
+    assert max(res.values()) <= 1e-9, res
+
+
+def test_hmc_calibrated_compress_launches_the_kernel(dev):
+    """compress_calibrated(method="hmc") on the card trains depth and RGB
+    with the CUDA kernel: two launches."""
+    import dataclasses
+
+    from gp_compressor_tpu_torch import config as c
+    from gp_compressor_tpu_torch.utils import synthetic
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    cfg = c.CompressorConfig(
+        patch=c.PatchConfig(res=0.3, sz=10, max_patches=256,
+                            max_points_per_patch=64,
+                            approx_sphere_moments=True,
+                            bank_order="center_out"),
+        depth_gp=c.GPConfig(capacity=14, slots=16, eps_tol=2.0),
+        rgb_gp=dataclasses.replace(c.rgb_gp_config(slots=16, capacity=14),
+                                   eps_tol=2.0))
+    pts, cols = (torch.from_numpy(a).to(dev)
+                 for a in synthetic.room_cloud(n=4000, seed=1))
+    valid = torch.ones(4000, dtype=torch.bool, device=dev)
+    n0 = sogp_train.LAUNCHES
+    comp, kp, s20, cal = compressor.compress_calibrated(
+        pts, cols, valid, cfg, method="hmc", calib_patches=8,
+        calib_points=32, calib_steps=20)
+    torch.cuda.synchronize()
+    assert sogp_train.LAUNCHES == n0 + 2
+    # the calibrated values leave the reference scale, and the RMSE bound
+    # of the JAX package's calibrated test (tests/test_compressor.py)
+    assert 0.0 < float(kp.sigmaf_sq) < 10.0 and 0.0 < s20 < 0.1
+    rmse = float(compressor.reconstruction_rmse(comp, cal, depth_kp=kp,
+                                                depth_s20=s20))
+    assert rmse < 0.08
