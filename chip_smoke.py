@@ -61,10 +61,48 @@ Phases, each of which must pass (any failure exits non-zero):
                (bench.py:691-777); each held to the JAX package's CPU
                anchors; then a NUTS transition, HMC and ADVI steps and an
                SMC step on the card against the CPU in float64 with the
-               same draws.
+               same draws;
+ 10. ksvd    — the K-SVD codec at the JAX package's bench row
+               (bench.py:779-822, atom_block 16): 1 warm-up and 2 timed
+               compress calls (points/s, sweeps, masked MSE, in-sample
+               RMS, mean words, one stop read per sweep, no training
+               kernel launch) held to the JAX anchors' range over four
+               keys, the stage split of one ksvd call (its stage
+               functions timed), one depth sweep under torch.profiler, the artifact
+               written, read back and decompressed on the host, and one
+               sweep on the card against the CPU in float64 with the same
+               draws;
+ 11. icp     — point-to-plane ICP on phase 3's map under phase 7's
+               perturbation (held to the JAX anchor), the gp-accuracy
+               protocol of cli.py (cmd_gp_accuracy at its defaults) over
+               20 pairs with GP registration and ICP on kernel maps (2
+               launches per pair) and on plain-version maps, held to the
+               JAX anchors' pairs and to each other, two pairs in float64,
+               the kernel at 101 slots (strict up to 90 BVs, deletions at
+               100) and at pair 0's banks against its plain version with
+               a float64 referee, timed; and the MAP calibration in
+               float32 and float64 over four clouds (same mode, the
+               patches behind any RMSE gap, each bank by the float64
+               referee).
 
 The last three lines of standard output are the kernels' JSON object, the
 card's `nvidia-smi` name and power limit, and the result object.
+
+    python3 chip_smoke.py --probe [f64_pairs] [arbitrate]
+
+runs, instead of the phases, the card-side probes that phase 11 runs only
+in part (both when none is named; JSON lines with the card's name and
+power limit; ~8 minutes):
+
+  * f64_pairs — the 20 gp-accuracy pairs, each aligned by GP register and
+    ICP on a map the kernel trains in float32, as phase 11 does, and on a
+    map the plain version trains in float64 with the registration in
+    float64: final errors, steps, the depth patches sanitize left empty;
+    medians and rank-sum tests against each other and against ACC_JAX;
+  * arbitrate — the kernel and the plain version in float32 held to the
+    plain version in float64 (sogp_regimes.arbitrate) at the accuracy
+    banks of pairs 0-2 (depth and RGB) and at the calibrated depth banks
+    of room_cloud seeds 0-3 at the float32 and float64 MAP's values.
 """
 
 from __future__ import annotations
@@ -153,6 +191,37 @@ SMC_JAX = dict(injected=0.07539442926645279, after_reg=0.022825060412287712,
                after_smc=(0.01023662555962801, 0.009596461430191994,
                           0.005447890609502792))
 SMC_PARTICLES, SMC_ITERS, SMC_RUNS = 256, 16, 3
+# anchors of phase 10: the JAX package's K-SVD row (bench.py:779-822, atom
+# block 16) on the CPU in float32 at keys 1-4 (port_anchors.py ksvd,
+# jax 0.9.0): the range of each value over the keys
+KSVD_JAX = {"range": {"rms": (0.013902850449085236, 0.013951080851256847),
+                      "depth_mse": (0.008564305491745472,
+                                    0.008667842485010624),
+                      "depth_iters": (16, 22), "rgb_iters": (2, 2)}}
+# anchors of phase 11 (port_anchors.py icp and accuracy, jax 0.9.0): ICP on
+# the headline map under phase 7's perturbation; the final mean point
+# error (m) of GP registration and of ICP at the gp-accuracy pairs of
+# seeds 0-19
+ICP_JAX = {"iters": 7, "final_mean_err": 3.1501669582212344e-05,
+           "trans_err": 5.96235622651875e-05}
+ACC_JAX = {
+    "gp": (0.8045054078102112, 0.6334191560745239, 1.1390420198440552,
+           1.8362358808517456, 0.8329454660415649, 0.9177649021148682,
+           0.050605591386556625, 0.08373649418354034, 1.798810601234436,
+           0.01587745174765587, 0.48897606134414673, 0.8824785351753235,
+           0.8276397585868835, 0.46685925126075745, 0.09986316412687302,
+           0.4695148468017578, 1.8128358125686646, 0.5105294585227966,
+           0.40021514892578125, 1.2248785495758057),
+    "icp": (0.05605810880661011, 0.04359973594546318, 0.041498150676488876,
+            0.05086246505379677, 0.054495565593242645, 3.491596221923828,
+            0.021410172805190086, 0.02004675753414631, 0.0391077995300293,
+            0.03792557492852211, 0.033929381519556046, 0.05827831104397774,
+            0.2735496163368225, 0.024318186566233635, 0.09023834764957428,
+            0.04484973102807999, 0.27870017290115356, 0.02899034693837166,
+            0.04768932983279228, 0.08713871240615845)}
+ACC_PAIRS, ACC_POINTS = 20, 100_000
+# pairs run again with map and registration in float64
+ACC_F64_PAIRS = 2
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -169,7 +238,35 @@ def bench_config():
                             bank_order="center_out"),
         depth_gp=c.GPConfig(capacity=30, slots=32, eps_tol=2.0),
         rgb_gp=dataclasses.replace(c.rgb_gp_config(slots=32, capacity=30),
-                                   eps_tol=2.0))
+                                   eps_tol=2.0),
+        ksvd=c.KSVDConfig(atom_block=16),
+        rgb_ksvd=dataclasses.replace(c.rgb_ksvd_config(), atom_block=16))
+
+
+def accuracy_config(dtype=torch.float32):
+    """gp-accuracy's configuration at its defaults (cli.py:380-416,
+    _gp_config): res 0.3, sz 10, 4096 patches of 256 points, the reference
+    GP constants at capacity 100 (101 slots), eps_tol 1e-6; the GPs'
+    states in dtype."""
+    from gp_compressor_tpu_torch import config as c
+    return c.CompressorConfig(
+        patch=c.PatchConfig(res=0.3, sz=10, max_patches=4096,
+                            max_points_per_patch=256),
+        depth_gp=c.GPConfig(capacity=100, slots=101, eps_tol=1e-6,
+                            dtype=dtype),
+        rgb_gp=c.rgb_gp_config(slots=101, capacity=100, dtype=dtype))
+
+
+def rank_sum_p(a, b) -> float:
+    """Two-sided p-value of the Wilcoxon rank-sum (Mann-Whitney) test that
+    samples a and b come from one distribution (normal approximation; the
+    samples are continuous, so ties are not corrected for)."""
+    n, m = len(a), len(b)
+    ranked = sorted([(v, 0) for v in a] + [(v, 1) for v in b])
+    r = sum(i + 1 for i, (_, src) in enumerate(ranked) if src == 0)
+    u = r - n * (n + 1) / 2
+    z = (u - n * m / 2) / math.sqrt(n * m * (n + m + 1) / 12)
+    return math.erfc(abs(z) / math.sqrt(2))
 
 
 def say(msg):
@@ -392,7 +489,6 @@ def calibrated_phase(pts, cols, valid, ccfg, dev, kind, card):
     from gp_compressor_tpu_torch.inference import hmc
     from gp_compressor_tpu_torch.models import sparse_gp
     from gp_compressor_tpu_torch.ops.kernels import RBFParams
-    from gp_compressor_tpu_torch.testing import sogp_regimes
     from gp_compressor_tpu_torch.workloads import compressor
 
     runs = {"cold": dict(calib_steps=150, calib_lr=0.1, calib_starts=4),
@@ -501,45 +597,11 @@ def calibrated_phase(pts, cols, valid, ccfg, dev, kind, card):
     # the kernel against its plain version at the calibrated bench banks,
     # both fed the calibrated row (device data), depth D=1 and RGB D=3
     for gpcfg, Y in ((ccfg.depth_gp, batch.y), (ccfg.rgb_gp, batch.rgb)):
-        B = batch.mask.shape[0]
-        init = sparse_gp.init_batch(gpcfg, B, device=dev)
-        out = sogp_train.add_points_batch_cuda(kp, gpcfg, init, batch.X, Y,
-                                               batch.mask, s20=s20,
-                                               eps_tol=eps)
-        tally = torch.zeros((B, 5), dtype=torch.int64, device=dev)
-        ref = sogp_train.add_points_batch_plain(kp, gpcfg, init, batch.X, Y,
-                                                batch.mask, s20=s20,
-                                                eps_tol=eps, tally=tally)
-        torch.cuda.synchronize()
-        res = sogp_regimes.compare("calibrated", ref, out, batch.X, Y,
-                                   batch.mask, kp=kp, s20=s20)
-        used = batch.mask.any(1)
-        act = float(out.active.sum(1)[used].double().mean())
-        adds, dels, gdels = tally[used, :3].double().mean(0).tolist()
-        bound = train_bound(gpcfg, batch.X, batch.mask, out, tally=tally)
-        row = sogp_train.hyper_row(kp, gpcfg, dev, s20=s20, eps_tol=eps)
-        scratch = sparse_gp.SOGPState(*[torch.empty_like(a) for a in init])
-        kern = lambda: sogp_train.launch(gpcfg, init, scratch, batch.X, Y,
-                                         batch.mask, row)
-        plain = lambda: sogp_train.add_points_batch_plain(
-            kp, gpcfg, init, batch.X, Y, batch.mask, s20=s20, eps_tol=eps)
-        kern()
-        p1, k1, k2, p2 = (event_ms(plain, 1), event_ms(kern, KERNEL_REPS),
-                          event_ms(kern, KERNEL_REPS), event_ms(plain, 1))
-        ms = (k1 + k2) / 2
-        row_bvs = float(tally[:, 3].sum()) / float(batch.mask.sum())
-        rows_max = int(batch.mask.sum(1).max())
+        init = sparse_gp.init_batch(gpcfg, batch.mask.shape[0], device=dev)
+        res, stats = kernel_at_site(kp, gpcfg, init, batch.X, Y, batch.mask,
+                                    s20, eps, dev)
         say(f"[6] calibrated bench banks D={gpcfg.dout} on {kind} ({card}): "
-            f"{json.dumps(res)}; mean active slots {act:.3f}, per patch "
-            f"{adds:.3f} additions, {dels:.3f} capacity deletions, "
-            f"{gdels:.4f} geometric deletions (patches with points), "
-            f"{row_bvs:.3f} BVs at the start of a row (mean over rows); "
-            f"kernel {k1:.4f}/{k2:.4f} ms per launch, plain {p1:.4f}/"
-            f"{p2:.4f} ms; bound {bound['bound_ms'] * 1e3:.2f} us by "
-            f"{bound['bound_by']} ({bound['bytes']} B, {bound['flops']:.4g} "
-            f"FLOP needed, {bound['flops_dense']:.4g} dense), share of bound "
-            f"{bound['bound_ms'] / ms:.4f}; longest patch {rows_max} valid "
-            f"rows, {ms * 1e3 / rows_max:.3f} us per row of it")
+            f"{json.dumps(res)}; {json.dumps(stats)}")
     return result["cold"]
 
 
@@ -653,6 +715,79 @@ def zero_off_active(st) -> torch.Tensor:
     return ~((st.C != 0) & both).any((1, 2)) & ~((st.Q != 0) & both).any((1, 2))
 
 
+def kernel_at_site(kp, gcfg, states, X, Y, mask, s20, eps, dev,
+                   rule="calibrated"):
+    """The training kernel against its plain version at one call site's
+    banks: the same states and hyperparameter row, held by `rule`
+    (sogp_regimes; "arbitrated" also trains the plain version in float64
+    as its referee), after checking that the kernel leaves its input
+    state unchanged. Raises AssertionError. Returns (the rule's readings,
+    the launch's statistics: per-patch additions and deletions from the
+    plain version's tally, active slots at entry and exit, the kernel's
+    and the plain version's ms per call and the bound)."""
+    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+    from gp_compressor_tpu_torch.models import sparse_gp
+    from gp_compressor_tpu_torch.ops.kernels import RBFParams
+    from gp_compressor_tpu_torch.testing import sogp_regimes
+
+    before = [a.clone() for a in states]
+    out = sogp_train.add_points_batch_cuda(kp, gcfg, states, X, Y, mask,
+                                           s20=s20, eps_tol=eps)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+              for a, b in zip(before, states)),
+          "the kernel changed its input state")
+    B = mask.shape[0]
+    tally = torch.zeros((B, 5), dtype=torch.int64, device=dev)
+    plain = lambda tl=None: sogp_train.add_points_batch_plain(
+        kp, gcfg, states, X, Y, mask, s20=s20, eps_tol=eps, tally=tl)
+    ref = plain(tally)
+    torch.cuda.synchronize()
+    s20v = gcfg.s20 if s20 is None else s20
+    if rule == "arbitrated":
+        f64 = lambda v: None if v is None else torch.as_tensor(
+            v, device=dev).double()
+        st64 = sparse_gp.SOGPState(*[a.double() if a.is_floating_point()
+                                     else a for a in states])
+        ref64 = sogp_train.add_points_batch_plain(
+            RBFParams(sigmaf_sq=f64(kp.sigmaf_sq), l_sq=f64(kp.l_sq)),
+            dataclasses.replace(gcfg, dtype=torch.float64), st64,
+            X.double(), Y.double(), mask, s20=f64(s20), eps_tol=f64(eps))
+        res = sogp_regimes.arbitrate(ref64, ref, out, X, Y, mask, kp, s20v)
+    else:
+        res = sogp_regimes.compare(rule, ref, out, X, Y, mask, kp=kp,
+                                   s20=s20v)
+    used = mask.any(1)
+    row = sogp_train.hyper_row(kp, gcfg, dev, s20=s20, eps_tol=eps)
+    scratch = sparse_gp.SOGPState(*[torch.empty_like(a) for a in states])
+    kern = lambda: sogp_train.launch(gcfg, states, scratch, X, Y, mask, row)
+    kern()
+    p1, k1, k2, p2 = (event_ms(plain, 1), event_ms(kern, KERNEL_REPS),
+                      event_ms(kern, KERNEL_REPS), event_ms(plain, 1))
+    ms = (k1 + k2) / 2
+    bound = train_bound(gcfg, X, mask, out, tally=tally)
+    adds, dels, gdels = tally[used, :3].double().mean(0).tolist()
+    rows_max = int(mask.sum(1).max())
+    stats = {
+        "B": B, "P": X.shape[1], "S": gcfg.slots, "D": gcfg.dout,
+        "patches_with_points": int(used.sum()),
+        "additions": adds, "capacity_deletions": dels,
+        "geometric_deletions": gdels,
+        "active_at_entry": float(states.active.sum(1)[used].double().mean()),
+        "active_at_exit": float(out.active.sum(1)[used].double().mean()),
+        "row_start_bvs": float(tally[:, 3].sum()) / float(mask.sum()),
+        "zero_off_active_share": float(zero_off_active(states).double()
+                                       .mean()),
+        "rows": int(mask.sum()), "rows_max": rows_max,
+        "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+        "bound_us": bound["bound_ms"] * 1e3, "bound_by": bound["bound_by"],
+        "bytes": bound["bytes"], "flops": bound["flops"],
+        "flops_dense": bound["flops_dense"],
+        "share_of_bound": bound["bound_ms"] / ms,
+        "us_per_row_of_longest": ms * 1e3 / rows_max}
+    return res, stats
+
+
 def mapping_phase(pts, cols, valid, ccfg, dev, kind, card):
     """Phase 8: the mapping stream of bench.py:575-688 with its guards, the
     kernel at the mapping call site, the stage split of one insert, syncs
@@ -664,9 +799,7 @@ def mapping_phase(pts, cols, valid, ccfg, dev, kind, card):
                                                 RegistrationConfig)
     from gp_compressor_tpu_torch.cuda_kernels import sogp_train
     from gp_compressor_tpu_torch.geometry import patches
-    from gp_compressor_tpu_torch.models import sparse_gp
     from gp_compressor_tpu_torch.ops.kernels import RBFParams
-    from gp_compressor_tpu_torch.testing import sogp_regimes
     from gp_compressor_tpu_torch.workloads import compressor, mapping
 
     res = ccfg.patch.res
@@ -775,47 +908,10 @@ def mapping_phase(pts, cols, valid, ccfg, dev, kind, card):
     # main banks, trained from the map's (non-empty) states
     check(len(captured) == 2, "[8] main-bank inputs not captured")
     for kp_, gcfg, states, X, Y, mask, s20, eps in captured:
-        before = [a.clone() for a in states]
-        out = sogp_train.add_points_batch_cuda(kp_, gcfg, states, X, Y, mask,
-                                               s20=s20, eps_tol=eps)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-                  for a, b in zip(before, states)),
-              "[8] the kernel changed its input state")
-        B = mask.shape[0]
-        tally = torch.zeros((B, 5), dtype=torch.int64, device=dev)
-        plain = lambda tl=None: sogp_train.add_points_batch_plain(
-            kp_, gcfg, states, X, Y, mask, s20=s20, eps_tol=eps, tally=tl)
-        ref_st = plain(tally)
-        torch.cuda.synchronize()
-        s20v = gcfg.s20 if s20 is None else s20
-        res = sogp_regimes.compare("calibrated", ref_st, out, X, Y, mask,
-                                   kp=kp_, s20=s20v)
-        used = mask.any(1)
-        row = sogp_train.hyper_row(kp_, gcfg, dev, s20=s20, eps_tol=eps)
-        scratch = sparse_gp.SOGPState(*[torch.empty_like(a) for a in states])
-        kern = lambda: sogp_train.launch(gcfg, states, scratch, X, Y, mask,
-                                         row)
-        kern()
-        p1, k1, k2, p2 = (event_ms(plain, 1), event_ms(kern, KERNEL_REPS),
-                          event_ms(kern, KERNEL_REPS), event_ms(plain, 1))
-        ms = (k1 + k2) / 2
-        bound = train_bound(gcfg, X, mask, out, tally=tally)
-        stats = {
-            "patches_with_points": int(used.sum()),
-            "active_at_entry": float(states.active.sum(1)[used].double()
-                                     .mean()),
-            "active_at_exit": float(out.active.sum(1)[used].double().mean()),
-            "zero_off_active_share": float(zero_off_active(states)
-                                           .double().mean()),
-            "rows": int(mask.sum()), "rows_max": int(mask.sum(1).max()),
-            "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-            "bound_us": bound["bound_ms"] * 1e3,
-            "bound_by": bound["bound_by"], "flops": bound["flops"],
-            "share_of_bound": bound["bound_ms"] / ms}
+        res, stats = kernel_at_site(kp_, gcfg, states, X, Y, mask, s20, eps,
+                                    dev)
         say(f"[8] kernel at the mapping call site, main bank D={gcfg.dout} "
-            f"B={B} P={X.shape[1]} S={gcfg.slots} on {kind} ({card}): "
-            f"{json.dumps(res)}; {json.dumps(stats)}")
+            f"on {kind} ({card}): {json.dumps(res)}; {json.dumps(stats)}")
 
     # ---- one insert's stage split, synchronised between stages
     split, last = {}, [0.0]
@@ -1129,6 +1225,559 @@ def bayes_phase(pts, cols, valid, ccfg, comp, smc_ctx, dev, kind, card):
     say(f"[9] phase walls (s): {json.dumps(walls)}")
 
 
+def ksvd_split(S, W, valid, cfg, draws):
+    """One dictionary.ksvd call with its stages wrapped in synchronised
+    timers: ({stage: host wall s summed over its calls}, iters, final
+    masked MSE). "rest" is the call's wall less its stages: the usage
+    counts, the stop reads and the host loop."""
+    from gp_compressor_tpu_torch.models import dictionary as dc
+
+    stages = {"omp_encode": "omp_encode", "_atom_sweep": "atom_sweep",
+              "masked_error": "masked_error",
+              "_replace_unused": "replace_unused"}
+    st = dict.fromkeys(stages.values(), 0.0)
+    orig = {f: getattr(dc, f) for f in stages}
+
+    def wrap(f):
+        def timed_stage(*a, **k):
+            r, w = timed(lambda: orig[f](*a, **k))
+            st[stages[f]] += w
+            return r
+        return timed_stage
+
+    for f in stages:
+        setattr(dc, f, wrap(f))
+    try:
+        res, wall = timed(lambda: dc.ksvd(S, W, valid, cfg, draws=draws))
+    finally:
+        for f, fn in orig.items():
+            setattr(dc, f, fn)
+    st["rest"] = wall - sum(st.values())
+    return st, res.iters, float(res.error)
+
+
+def ksvd_phase(pts, cols, valid, ccfg, dev, kind, card):
+    """Phase 10: the K-SVD row of bench.py:779-822 with its guards, the
+    stage split, one profiled depth sweep, the artifact on the card, and
+    one sweep on the card against the CPU in float64."""
+    import numpy as np
+
+    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+    from gp_compressor_tpu_torch.geometry import patches
+    from gp_compressor_tpu_torch.io import artifact
+    from gp_compressor_tpu_torch.models import dictionary
+    from gp_compressor_tpu_torch.testing import ksvd_case
+    from gp_compressor_tpu_torch.workloads import ksvd_compressor as kc
+
+    t_phase = time.perf_counter()
+
+    def run(seed):
+        dictionary.READS = 0
+        comp = kc.compress(pts, cols, valid, ccfg, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        return comp, dictionary.READS
+
+    run(0)                                                 # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    sogp_train.LAUNCHES = 0
+    rows = []
+    for seed in (1, 2):
+        t0 = time.perf_counter()
+        comp, reads = run(seed)
+        wall = time.perf_counter() - t0
+        n, B = int(comp.raster.n_leaves), comp.raster.S.shape[0]
+        rows.append({
+            "seed": seed, "wall_s": wall, "points_per_s": N_POINTS / wall,
+            "rms_m": kc.rms_error(comp), "depth_mse": float(comp.depth.error),
+            "rgb_mse": float(comp.rgb.error),
+            "depth_iters": comp.depth.iters, "rgb_iters": comp.rgb.iters,
+            "depth_mean_words": float(comp.depth.code.nw[:n].double().mean()),
+            "rgb_mean_words": float(comp.rgb.code.nw.reshape(3, B)[:, :n]
+                                    .double().mean()),
+            "stop_reads": reads})
+        if seed == 1:
+            comp1 = comp
+    peak = torch.cuda.max_memory_allocated(dev)
+    best = min(r["wall_s"] for r in rows)
+    say(f"[10] K-SVD compress on {kind} ({card}): best {best:.4f} s = "
+        f"{N_POINTS / best:.1f} points/s; peak memory {peak} B; runs "
+        f"{json.dumps(rows)}")
+    check(sogp_train.LAUNCHES == 0, "[10] the K-SVD path launched the "
+                                    "training kernel")
+    rng = KSVD_JAX["range"]
+    for r in rows:
+        # each sweep's stop test is the one read: iters per ksvd call
+        check(r["stop_reads"] == r["depth_iters"] + r["rgb_iters"],
+              f"[10] {r['stop_reads']} stop reads for {r['depth_iters']} + "
+              f"{r['rgb_iters']} sweeps")
+        for f in ("rms", "depth_mse"):
+            v = r["rms_m" if f == "rms" else f]
+            check(0.95 * rng[f][0] <= v <= 1.05 * rng[f][1],
+                  f"[10] {f} {v} outside the JAX anchors' {rng[f]} +- 5%")
+        for f in ("depth_iters", "rgb_iters"):
+            check(rng[f][0] - 2 <= r[f] <= rng[f][1] + 2,
+                  f"[10] {f} {r[f]} outside the JAX anchors' {rng[f]} +- 2")
+
+    # ---- the stage split of seed 1's compress: its raster (the raster's
+    # sums are atomic, so a rebuilt one may differ in the last bit) and
+    # the same draws
+    _, t_raster = timed(lambda: patches.build_raster_patches(
+        pts, cols, valid, ccfg.patch))
+    raster = comp1.raster
+    B = raster.S.shape[0]
+    pvalid = torch.arange(B, device=dev) < raster.n_leaves
+    g = torch.Generator(device=dev).manual_seed(1)
+    problems = {"depth": (raster.S, raster.W.to(raster.S.dtype), pvalid,
+                          ccfg.ksvd),
+                "rgb": kc.rgb_problem(raster, pvalid) + (ccfg.rgb_ksvd,)}
+    split = {"raster_s": t_raster}
+    draws = {}
+    for name, (S, W, v, cfg) in problems.items():
+        draws[name] = dictionary.draw_ksvd(v, cfg, g)
+        st, iters, err = ksvd_split(S, W, v, cfg, draws[name])
+        ref = getattr(comp1, name)
+        check(iters == ref.iters and abs(err - float(ref.error))
+              <= 1e-4 * abs(float(ref.error)),
+              f"[10] the {name} split ({iters} sweeps, MSE {err}) differs "
+              f"from the compress ({ref.iters}, {float(ref.error)})")
+        split[name] = dict(st, sweeps=iters)
+    say(f"[10] stage split (host wall s of one ksvd call, synchronised "
+        f"around each stage, summed over its calls) on {kind} ({card}): "
+        f"{json.dumps(split)}")
+
+    # ---- one depth sweep under torch.profiler
+    S, W, v, cfg = problems["depth"]
+    dd = draws["depth"]
+    D0 = dictionary._replace_unused(
+        torch.zeros((S.shape[1], cfg.dict_size), dtype=S.dtype, device=dev),
+        torch.zeros(cfg.dict_size, dtype=torch.int64, device=dev), S,
+        dd.init)
+    sweep = lambda: dictionary._ksvd_sweep(D0, dd.sweeps[0], S, W, v, cfg)
+    _, sweep_wall = timed(sweep)
+    res = profile_summary(sweep, sweep_wall)
+    say(f"[10] one depth sweep (B=2048 G=400 K=200, atom_block 16) profiled "
+        f"on {kind} ({card}): unprofiled wall {sweep_wall:.4f} s; "
+        f"{json.dumps(res)}")
+
+    # ---- the artifact: write, read back, decompress on the host
+    base = sogp_train.BUILD_DIR.parent / "chip_smoke" / "ksvd"
+    base.parent.mkdir(parents=True, exist_ok=True)
+    art, t_art = timed(lambda: kc.to_artifact(comp1))
+    t0 = time.perf_counter()
+    artifact.write(str(base), art)
+    back = artifact.read(str(base))
+    pts2, _ = kc.decompress_artifact(back)
+    t_file = time.perf_counter() - t0
+    # both emit the occupied cells patch by patch, in cell order
+    w, _, ok = kc.decompress(comp1)
+    w = w[ok].cpu().numpy()
+    gap = float(np.abs(pts2 - w).max()) if pts2.shape == w.shape \
+        else math.inf
+    sizes = {s: (base.parent / (base.name + s)).stat().st_size
+             for s in (".pccode", "depth.pcdict", "rgb.pcdict")}
+    say(f"[10] artifact on {kind} ({card}): to_artifact {t_art:.4f} s, write "
+        f"+ read + host decompress {t_file:.4f} s, {w.shape[0]} points, "
+        f"bytes {json.dumps(sizes)}, max |file - in-memory| {gap:.3g} m")
+    check(gap <= 1e-4, f"[10] the artifact's points differ from the "
+                       f"in-memory decompress by {gap} m")
+
+    # ---- the card against the CPU, float64, the same draws
+    t0 = time.perf_counter()
+    par = ksvd_case.sweep_parity(raster.S[:512], raster.W[:512],
+                                 pvalid[:512], ccfg.ksvd, dev)
+    say(f"[10] one depth sweep, 512 patches, card against CPU, float64, "
+        f"same draws ({time.perf_counter() - t0:.2f} s on {kind} ({card})): "
+        f"{json.dumps(par)}")
+    check(par["indices_equal"], "[10] atom indices differ between the card "
+                                "and the CPU")
+    for k in ("omp_X", "sweep_D", "sweep_X", "sweep_err"):
+        check(par[k] <= 1e-9, f"[10] {k}: card and CPU differ by {par[k]}")
+    say(f"[10] phase wall {time.perf_counter() - t_phase:.2f} s on {kind} "
+        f"({card})")
+
+
+def icp_accuracy_phase(pts, valid, ccfg, comp_ref, dev, kind, card):
+    """Phase 11: ICP on the headline map under phase 7's perturbation, the
+    gp-accuracy protocol over ACC_PAIRS pairs (GP register and ICP), held
+    to the JAX anchors, then the float32 / float64 MAP calibration over
+    four clouds."""
+    from gp_compressor_tpu_torch.geometry import transforms
+    from gp_compressor_tpu_torch.workloads import icp, registration
+
+    t_phase = time.perf_counter()
+    R_true = transforms.euler_xyz(torch.tensor(PERTURB_ANG, device=dev))
+    t_true = torch.tensor(PERTURB_T, device=dev)
+    moved = transforms.apply(pts, R_true, t_true)
+
+    def run():
+        r = icp.icp_register(comp_ref, moved, valid, ccfg)
+        torch.cuda.synchronize()
+        return r
+
+    run()                                                   # warm-up
+    walls = []
+    for _ in range(3):
+        icp.READS = 0
+        t0 = time.perf_counter()
+        res = run()
+        walls.append(time.perf_counter() - t0)
+    terr, rerr = registration.registration_error(res.R, res.t, R_true,
+                                                 t_true)
+    final = float(torch.linalg.norm(transforms.apply(moved, res.R, res.t)
+                                    - pts, dim=1).mean())
+    row = {"iters": res.iters, "stop_reads": icp.READS,
+           "trans_err_m": float(terr), "rot_err_rad": float(rerr),
+           "initial_mean_err_m": float(torch.linalg.norm(
+               moved - pts, dim=1).mean()), "final_mean_err_m": final,
+           "rms_residual_m": float(res.rms_residual),
+           "n_matched": int(res.n_matched)}
+    wall = sorted(walls)[1]
+    say(f"[11] ICP on the headline map on {kind} ({card}): walls {walls} s, "
+        f"median {wall:.4f} s, {res.iters / wall:.1f} iterations/s; "
+        f"{json.dumps(row)}")
+    check(row["stop_reads"] == res.iters, "[11] ICP reads more than its "
+                                          "stop test per iteration")
+    check(abs(res.iters - ICP_JAX["iters"]) <= 2,
+          f"[11] ICP iterations {res.iters} not within 2 of JAX's "
+          f"{ICP_JAX['iters']}")
+    check(final <= max(2 * ICP_JAX["final_mean_err"], 1e-4),
+          f"[11] ICP final error {final} above max(2 x JAX's "
+          f"{ICP_JAX['final_mean_err']}, 0.1 mm)")
+
+    accuracy_pairs(dev, kind, card)
+    map_dtype_check(ccfg, dev, kind, card)
+    say(f"[11] phase wall {time.perf_counter() - t_phase:.2f} s on {kind} "
+        f"({card})")
+
+
+def accuracy_pair(seed, dt, dev):
+    """gp-accuracy's pair `seed` (cli.py cmd_gp_accuracy) on the card in
+    dt: (map points, map colours, the scan's true points, the moved scan,
+    its colours, the true R, the true t)."""
+    import numpy as np
+
+    from gp_compressor_tpu_torch.utils import synthetic
+
+    half = ACC_POINTS // 2
+    p_np, c_np = synthetic.room_cloud(n=ACC_POINTS, seed=seed)
+    rng = np.random.default_rng(seed)
+    rotvec = 0.005 * rng.standard_normal(3)
+    t_np = 0.02 * rng.standard_normal(3)
+    scan_np, R_np = synthetic.rigid_transform(p_np[half:], rotvec, t_np)
+    arrays = (p_np[:half], c_np[:half], p_np[half:], scan_np, c_np[half:],
+              R_np, t_np)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(dt)
+            for a in arrays]
+
+
+def mean_err(p, q) -> float:
+    return float(torch.linalg.norm(p.double() - q.double(), dim=1).mean())
+
+
+def align_pair(comp, cfg, rcfg, scan, scols, truth, Rt, tt) -> dict:
+    """GP register and ICP of one accuracy pair's scan against its map:
+    steps, final mean point error, translation and rotation error and
+    wall of each, and the map's depth patches holding points that
+    sanitize left empty."""
+    from gp_compressor_tpu_torch.geometry import transforms
+    from gp_compressor_tpu_torch.models import sparse_gp
+    from gp_compressor_tpu_torch.workloads import icp, registration
+
+    ones = torch.ones(scan.shape[0], dtype=torch.bool, device=scan.device)
+    (st, aligned), t_g = timed(lambda: registration.register(
+        comp, scan, scols, ones, cfg, rcfg))
+    ires, t_i = timed(lambda: icp.icp_register(comp, scan, ones, cfg))
+    gte, gre = registration.registration_error(st.R_cloud, st.t_exact, Rt,
+                                               tt)
+    ite, ire = registration.registration_error(ires.R, ires.t, Rt, tt)
+    used = comp.patch.mask.any(1)
+    return {"depth_emptied": int(((sparse_gp.size(comp.depth_gp) == 0)
+                                  & used).sum()),
+            "gp": {"steps": int(st.step_nbr),
+                   "final_mean_err_m": mean_err(aligned, truth),
+                   "trans_err_m": float(gte), "rot_err_rad": float(gre),
+                   "wall_s": t_g},
+            "icp": {"iters": ires.iters, "final_mean_err_m": mean_err(
+                transforms.apply(scan, ires.R, ires.t), truth),
+                "trans_err_m": float(ite), "rot_err_rad": float(ire),
+                "wall_s": t_i}}
+
+
+def accuracy_pairs(dev, kind, card):
+    """The gp-accuracy protocol (cli.py cmd_gp_accuracy) over ACC_PAIRS
+    pairs: each pair's map trained by the kernel, as the CLI does, and by
+    its plain version as a witness, both aligned by GP register and ICP;
+    then ACC_F64_PAIRS pairs with map and registration in float64. Then
+    the kernel at 101 slots: strict regimes up to 90 BVs, capacity
+    deletions at 100 BVs, and pair 0's banks against its plain version
+    with the plain version in float64 as referee, timed."""
+    import numpy as np
+
+    from gp_compressor_tpu_torch.config import RegistrationConfig
+    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+    from gp_compressor_tpu_torch.models import sparse_gp
+    from gp_compressor_tpu_torch.testing import sogp_regimes
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    acfg = accuracy_config()
+    a64 = accuracy_config(torch.float64)
+    rcfg = RegistrationConfig(step=0.005, max_steps=150)
+    ones = torch.ones(ACC_POINTS // 2, dtype=torch.bool, device=dev)
+
+    pairs = []
+    launches = 0
+    t_pairs = time.perf_counter()
+    for seed in range(ACC_PAIRS):
+        mp, mc, truth, scan, scols, Rt, tt = accuracy_pair(
+            seed, torch.float32, dev)
+        # compress = project + train: both routes train the same banks
+        batch, t_p = timed(lambda: compressor.project(
+            mp, mc, ones, acfg,
+            generator=torch.Generator(device=dev).manual_seed(seed)))
+        if seed == 0:
+            batch0 = batch
+        pair = {"seed": seed, "initial_mean_err_m": mean_err(scan, truth),
+                "project_s": t_p,
+                "patches_with_points": int(batch.mask.any(1).sum())}
+        for route, use in (("kernel", True), ("plain", False)):
+            sogp_train.LAUNCHES = 0
+            comp, t_t = timed(lambda: compressor.train(batch, acfg,
+                                                       use_kernel=use))
+            launches += sogp_train.LAUNCHES
+            pair[route] = dict(align_pair(comp, acfg, rcfg, scan, scols,
+                                          truth, Rt, tt), train_s=t_t)
+        pairs.append(pair)
+        say(f"[11] accuracy pair on {kind} ({card}): {json.dumps(pair)}")
+    t_pairs = time.perf_counter() - t_pairs
+
+    summary = {}
+    for route in ("kernel", "plain"):
+        for m in ("gp", "icp"):
+            rows = [p[route][m] for p in pairs]
+            e = [r["final_mean_err_m"] for r in rows]
+            summary[f"{route}/{m}"] = {
+                "median_final_mean_err_m": float(np.median(e)),
+                "worst_final_mean_err_m": float(np.max(e)),
+                "median_trans_err_m": float(np.median(
+                    [r["trans_err_m"] for r in rows])),
+                "median_rot_err_rad": float(np.median(
+                    [r["rot_err_rad"] for r in rows]))}
+        summary[f"{route}/gp"]["pairs_at_step_cap"] = sum(
+            p[route]["gp"]["steps"] == rcfg.max_steps for p in pairs)
+        summary[f"{route}/depth_emptied_share"] = sum(
+            p[route]["depth_emptied"] for p in pairs) / sum(
+            p["patches_with_points"] for p in pairs)
+    for m in ("gp", "icp"):
+        k, p_ = ([p[r][m]["final_mean_err_m"] for p in pairs]
+                 for r in ("kernel", "plain"))
+        summary[f"kernel_vs_plain/{m}"] = {
+            "pairs_within_10pct": sum(abs(a - b) <= 0.1 * max(a, b)
+                                      for a, b in zip(k, p_)),
+            "median_abs_gap_m": float(np.median(np.abs(np.subtract(k, p_)))),
+            "rank_sum_p": rank_sum_p(k, p_)}
+    say(f"[11] accuracy over {ACC_PAIRS} pairs on {kind} ({card}): "
+        f"{t_pairs:.2f} s, kernel launches {launches}; "
+        f"{json.dumps(summary)}")
+
+    # ---- the float64 witness: map (plain version) and registration in
+    # float64 on the first pairs
+    f64 = []
+    for seed in range(ACC_F64_PAIRS):
+        mp, mc, truth, scan, scols, Rt, tt = accuracy_pair(
+            seed, torch.float64, dev)
+        batch = compressor.project(
+            mp, mc, ones, a64,
+            generator=torch.Generator(device=dev).manual_seed(seed))
+        comp, t_t = timed(lambda: compressor.train(batch, a64,
+                                                   use_kernel=False))
+        f64.append(dict(align_pair(comp, a64, rcfg, scan, scols, truth, Rt,
+                                   tt), seed=seed, train_s=t_t,
+                        initial_mean_err_m=mean_err(scan, truth)))
+        say(f"[11] float64 accuracy pair on {kind} ({card}): "
+            f"{json.dumps(f64[-1])}")
+
+    # ---- the kernel at 101 slots: strict regimes with up to 90 BVs (a
+    # lane's slots 1-3 hold BVs), capacity deletions at 100 BVs
+    kp_ref = sogp_regimes.params(dev)
+    for rows, rule in ((40, "strict"), (96, "strict"), (160, "calibrated")):
+        for name in ("strict_d1", "strict_d3"):
+            cfg, X, Y, M = (torch.from_numpy(a).to(dev) if i else a
+                            for i, a in enumerate(sogp_regimes.regime(
+                                name, slots=101, capacity=100,
+                                points=rows)))
+            init = sparse_gp.init_batch(cfg, X.shape[0], device=dev)
+            out = sogp_train.add_points_batch_cuda(kp_ref, cfg, init, X, Y,
+                                                   M)
+            ref = sogp_train.add_points_batch_plain(kp_ref, cfg, init, X, Y,
+                                                    M)
+            res = sogp_regimes.compare(rule, ref, out, X, Y, M)
+            size = sparse_gp.size(ref).double()
+            say(f"[11] {name} at 101 slots, capacity 100, {rows} rows "
+                f"({rule} rule) on {kind} ({card}): {json.dumps(res)}; BVs "
+                f"mean {float(size.mean()):.2f} max {int(size.max())}")
+
+    # ---- the kernel at pair 0's banks against its plain version, the
+    # plain version in float64 as referee (sogp_regimes, `arbitrated`)
+    dkp, ckp = compressor.default_params(acfg, dev)
+    for gcfg, kp, Y in ((acfg.depth_gp, dkp, batch0.y),
+                        (acfg.rgb_gp, ckp, batch0.rgb)):
+        init = sparse_gp.init_batch(gcfg, batch0.mask.shape[0], device=dev)
+        res, stats = kernel_at_site(kp, gcfg, init, batch0.X, Y, batch0.mask,
+                                    None, None, dev, rule="arbitrated")
+        say(f"[11] kernel at the accuracy banks D={gcfg.dout} (pair 0) on "
+            f"{kind} ({card}): {json.dumps(res)}; {json.dumps(stats)}")
+
+    check(launches == 2 * ACC_PAIRS, f"[11] kernel launches {launches}, "
+                                     f"expected 2 per pair's kernel map")
+    # The witness: the plain version's maps, aligned by the same code, are
+    # not told apart from the kernel's as a sample of final errors.
+    for m in ("gp", "icp"):
+        p_val = summary[f"kernel_vs_plain/{m}"]["rank_sum_p"]
+        check(p_val >= 0.01, f"[11] {m}: the kernel's maps and the plain "
+                             f"version's give different final errors "
+                             f"(rank-sum p {p_val})")
+    # In float32 at the reference GP constants most depth patches end
+    # non-finite or far off and sanitize empties them, in both trainers
+    # and in JAX (port_anchors.py accuracy_resets): the GP ascent then
+    # walks away and ICP keeps few planes, so a pair's path is rounding
+    # and not reproducible across packages or routes. Each route's 20
+    # final errors are held to JAX's as a sample: a method passes when
+    # its median is within 10% or 0.5 mm of JAX's, or a rank-sum test
+    # does not tell the two samples apart at the 1% level. In float64 the
+    # map keeps its patches and both methods register.
+    for route in ("kernel", "plain"):
+        for m in ("gp", "icp"):
+            mine = [p[route][m]["final_mean_err_m"] for p in pairs]
+            ref = float(np.median(ACC_JAX[m]))
+            med = summary[f"{route}/{m}"]["median_final_mean_err_m"]
+            p_val = rank_sum_p(mine, ACC_JAX[m])
+            say(f"[11] {route}/{m}: median {med} against JAX's {ref}; "
+                f"rank-sum p {p_val:.4f}")
+            check(abs(med - ref) <= max(0.1 * ref, 5e-4) or p_val >= 0.01,
+                  f"[11] {route}/{m} final errors (median {med}) differ "
+                  f"from JAX's (median {ref}): rank-sum p {p_val}")
+    for r in f64:
+        for m in ("gp", "icp"):
+            check(r[m]["final_mean_err_m"]
+                  <= max(r["initial_mean_err_m"], 0.02),
+                  f"[11] float64 pair {r['seed']}: {m} walks away to "
+                  f"{r[m]['final_mean_err_m']} m from "
+                  f"{r['initial_mean_err_m']} m")
+    return pairs
+
+
+def patch_sq_err(comp, kp, s20) -> torch.Tensor:
+    """[B] float64: each patch's summed squared in-sample depth error (the
+    terms of compressor.reconstruction_rmse)."""
+    from gp_compressor_tpu_torch.models import sparse_gp
+
+    b = comp.patch
+    mean, _ = sparse_gp.predict_batch(kp, s20, comp.depth_gp, b.X)
+    return torch.where(b.mask, (mean[..., 0] - b.y[..., 0]).double() ** 2,
+                       0.0).sum(1)
+
+
+def map_dtype_check(ccfg, dev, kind, card):
+    """The MAP calibration in float32 and float64 over four clouds: the
+    hyperparameters must agree (the same mode). Where the in-sample RMSEs
+    differ, the patches behind the gap: the three whose squared error
+    differs most, the RMSE without them, and those patches retrained at
+    both runs' values by the kernel, the plain version in float32 and in
+    float64. Then the float32 run's depth bank trained by the kernel and
+    by the plain version in float32, held to the plain version in float64
+    by the `arbitrated` rule."""
+    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+    from gp_compressor_tpu_torch.models import sparse_gp
+    from gp_compressor_tpu_torch.ops.kernels import RBFParams
+    from gp_compressor_tpu_torch.testing import sogp_regimes
+    from gp_compressor_tpu_torch.utils import synthetic
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    def train(batch, idx, kp, s20, route):
+        # the depth bank's patches idx trained by `route`, before sanitize
+        dt = torch.float64 if route == "plain_f64" else torch.float32
+        g = dataclasses.replace(ccfg.depth_gp, dtype=dt)
+        X, Y, M = batch.X[idx].to(dt), batch.y[idx].to(dt), batch.mask[idx]
+        k = RBFParams(sigmaf_sq=kp.sigmaf_sq.to(dt), l_sq=kp.l_sq.to(dt))
+        fn = (sogp_train.add_points_batch_cuda if route == "kernel"
+              else sogp_train.add_points_batch_plain)
+        return fn(k, g, sparse_gp.init_batch(g, len(idx), device=dev), X, Y,
+                  M, s20=s20.to(dt), eps_tol=g.eps_tol * k.sigmaf_sq
+                  / g.sigmaf_sq)
+
+    t0 = time.perf_counter()
+    rows = []
+    for seed in range(4):
+        p_np, c_np = synthetic.room_cloud(n=N_POINTS, seed=seed)
+        p, c = (torch.from_numpy(a).to(dev) for a in (p_np, c_np))
+        v = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+        row, runs = {"seed": seed}, {}
+        for name, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            comp, kp, s20, _ = compressor.compress_decompress_calibrated(
+                p, c, v, ccfg, calib_patches=32, calib_points=64,
+                calib_steps=150, calib_lr=0.1, calib_starts=4,
+                calib_dtype=dt)
+            runs[name] = (comp, kp, s20, patch_sq_err(comp, kp, s20))
+            row[name] = [float(kp.sigmaf_sq), float(kp.l_sq), float(s20),
+                         float(compressor.reconstruction_rmse(
+                             comp, ccfg, depth_kp=kp, depth_s20=s20))]
+        row["same_mode"] = all(abs(math.log(a / b)) <= 0.1 for a, b in
+                               zip(row["f32"][:3], row["f64"][:3]))
+        # the bench bank order draws nothing: both runs hold the same banks
+        batch = runs["f32"][0].patch
+        n = batch.mask.sum(1)
+        e32, e64 = runs["f32"][3], runs["f64"][3]
+        top = torch.topk((e32 - e64).abs(), 3).indices
+        keep = torch.ones_like(n, dtype=torch.bool)
+        keep[top] = False
+        row["rmse_without_top3"] = [
+            math.sqrt(float(e[keep].sum() / n[keep].sum()))
+            for e in (e32, e64)]
+        row["top3"] = [{"patch": int(b), "points": int(n[b]),
+                        "rmse_f32": math.sqrt(float(e32[b] / n[b])),
+                        "rmse_f64": math.sqrt(float(e64[b] / n[b])),
+                        "bvs": [int(sparse_gp.size(runs[r][0].depth_gp)[b])
+                                for r in ("f32", "f64")]}
+                       for b in top.tolist()]
+        row["retrained_top3"] = {}
+        for name in ("f32", "f64"):
+            _, kp, s20, _ = runs[name]
+            for route in ("kernel", "plain_f32", "plain_f64"):
+                st = train(batch, top, kp, s20, route)
+                row["retrained_top3"][f"{route}@{name}"] = \
+                    sogp_regimes.patch_rmse(
+                        RBFParams(sigmaf_sq=kp.sigmaf_sq.to(st.C.dtype),
+                                  l_sq=kp.l_sq.to(st.C.dtype)),
+                        s20.to(st.C.dtype), st, batch.X[top].to(st.C.dtype),
+                        batch.y[top], batch.mask[top]).tolist()
+        # the whole depth bank at the float32 run's values
+        _, kp, s20, _ = runs["f32"]
+        every = torch.arange(batch.mask.shape[0], device=dev)
+        out, ref, ref64 = (train(batch, every, kp, s20, r)
+                           for r in ("kernel", "plain_f32", "plain_f64"))
+        try:
+            row["arbitrated"] = sogp_regimes.arbitrate(
+                ref64, ref, out, batch.X, batch.y, batch.mask, kp, s20)
+        except AssertionError as e:
+            row["arbitrated"] = {"fails": str(e)}
+        rows.append(row)
+        say(f"[11] MAP calibration float32 vs float64, cloud {seed} "
+            f"(sigma_f^2, l^2, s20, rmse m) on {kind} ({card}): "
+            f"{json.dumps(row)}")
+    say(f"[11] MAP calibration over 4 clouds: "
+        f"{time.perf_counter() - t0:.2f} s on {kind} ({card})")
+    for r in rows:
+        check(r["same_mode"], f"[11] cloud {r['seed']}: the float32 MAP "
+                              f"{r['f32'][:3]} is not in float64's mode "
+                              f"{r['f64'][:3]}")
+        a, b = r["rmse_without_top3"]
+        check(abs(a - b) <= 0.01 * b, f"[11] cloud {r['seed']}: float32 "
+              f"and float64 runs differ beyond three patches ({a}, {b})")
+        check("fails" not in r["arbitrated"], f"[11] cloud {r['seed']}: "
+              f"{r['arbitrated']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1367,6 +2016,12 @@ def main() -> int:
     # ---- 9. the Bayesian layer
     bayes_phase(pts, cols, valid, ccfg, comp, smc_ctx, dev, kind, card)
 
+    # ---- 10. the K-SVD codec
+    ksvd_phase(pts, cols, valid, ccfg, dev, kind, card)
+
+    # ---- 11. ICP, the accuracy pairs, and the MAP calibration's dtype
+    icp_accuracy_phase(pts, valid, ccfg, comp, dev, kind, card)
+
     # one D=1 and one D=3 launch per round trip: ms and plain_ms are their sum
     kernels = [{
         "name": "sogp_train",
@@ -1389,5 +2044,113 @@ def main() -> int:
     return 0
 
 
+def probe_say(tag, card, d):
+    print(json.dumps({"probe": tag, "card": card, **d}), flush=True)
+
+
+def probe_f64_pairs(dev, card):
+    import numpy as np
+
+    from gp_compressor_tpu_torch.config import RegistrationConfig
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    rcfg = RegistrationConfig(step=0.005, max_steps=150)
+    ones = torch.ones(ACC_POINTS // 2, dtype=torch.bool, device=dev)
+    rows = []
+    for seed in range(ACC_PAIRS):
+        row = {"seed": seed}
+        for name, dt, use in (("kernel_f32", torch.float32, True),
+                              ("plain_f64", torch.float64, False)):
+            cfg = accuracy_config(dt)
+            mp, mc, truth, scan, scols, Rt, tt = accuracy_pair(seed, dt,
+                                                               dev)
+            batch = compressor.project(
+                mp, mc, ones, cfg,
+                generator=torch.Generator(device=dev).manual_seed(seed))
+            comp = compressor.train(batch, cfg, use_kernel=use)
+            row[name] = align_pair(comp, cfg, rcfg, scan, scols, truth,
+                                   Rt, tt)
+            row["initial_mean_err_m"] = mean_err(scan, truth)
+            row["patches_with_points"] = int(batch.mask.any(1).sum())
+        rows.append(row)
+        probe_say("f64_pair", card, row)
+    out = {}
+    for m in ("gp", "icp"):
+        e = {r: [p[r][m]["final_mean_err_m"] for p in rows]
+             for r in ("kernel_f32", "plain_f64")}
+        out[m] = {"median_" + r: float(np.median(v)) for r, v in e.items()}
+        out[m]["median_jax_f32"] = float(np.median(ACC_JAX[m]))
+        out[m]["p_kernel_f32_vs_plain_f64"] = rank_sum_p(*e.values())
+        out[m]["p_plain_f64_vs_jax_f32"] = rank_sum_p(e["plain_f64"],
+                                                      ACC_JAX[m])
+    for r in ("kernel_f32", "plain_f64"):
+        out[r + "_gp_pairs_at_step_cap"] = sum(
+            p[r]["gp"]["steps"] == rcfg.max_steps for p in rows)
+        out[r + "_depth_emptied_share"] = sum(
+            p[r]["depth_emptied"] for p in rows) / sum(
+            p["patches_with_points"] for p in rows)
+    probe_say("f64_summary", card, out)
+
+
+def probe_arbitrate(dev, card):
+    from gp_compressor_tpu_torch.models import sparse_gp
+    from gp_compressor_tpu_torch.utils import synthetic
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    def held(tag, kp, gcfg, X, Y, M, s20=None, eps=None):
+        init = sparse_gp.init_batch(gcfg, M.shape[0], device=dev)
+        try:
+            res, stats = kernel_at_site(kp, gcfg, init, X, Y, M, s20, eps,
+                                        dev, rule="arbitrated")
+        except AssertionError as e:
+            res, stats = {"fails": str(e)}, {}
+        probe_say("arbitrate", card, {"bank": tag, **res, "launch": stats})
+
+    acfg = accuracy_config()
+    dkp, ckp = compressor.default_params(acfg, dev)
+    ones = torch.ones(ACC_POINTS // 2, dtype=torch.bool, device=dev)
+    for seed in range(3):
+        mp, mc = accuracy_pair(seed, torch.float32, dev)[:2]
+        b = compressor.project(
+            mp, mc, ones, acfg,
+            generator=torch.Generator(device=dev).manual_seed(seed))
+        held(f"accuracy pair {seed} depth", dkp, acfg.depth_gp, b.X, b.y,
+             b.mask)
+        held(f"accuracy pair {seed} rgb", ckp, acfg.rgb_gp, b.X, b.rgb,
+             b.mask)
+    ccfg = bench_config()
+    v = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+    for seed in range(4):
+        p, c = (torch.from_numpy(a).to(dev)
+                for a in synthetic.room_cloud(n=N_POINTS, seed=seed))
+        for dt in (torch.float32, torch.float64):
+            comp, kp, s20, _ = compressor.compress_decompress_calibrated(
+                p, c, v, ccfg, calib_dtype=dt)
+            eps = ccfg.depth_gp.eps_tol * kp.sigmaf_sq \
+                / ccfg.depth_gp.sigmaf_sq
+            b = comp.patch
+            held(f"calibrated cloud {seed} MAP {dt}", kp, ccfg.depth_gp,
+                 b.X, b.y, b.mask, s20=s20, eps=eps)
+
+
+def probe(sections) -> int:
+    """`--probe`: the card-side probes phase 11 runs only in part."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    sogp_train.build()
+    if "arbitrate" in sections:
+        probe_arbitrate(dev, card)
+    if "f64_pairs" in sections:
+        probe_f64_pairs(dev, card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--probe"]:
+        sys.exit(probe(set(sys.argv[2:]) or {"f64_pairs", "arbitrate"}))
     sys.exit(main())

@@ -66,7 +66,8 @@ class PatchConfig:
 @dataclasses.dataclass(frozen=True)
 class KSVDConfig:
     """Dictionary codec constants (depth pipeline of the reference's
-    test_compress demo). Pure data here: the codec is not ported yet."""
+    test_compress demo; models/dictionary.py). atom_block > 1 updates that
+    many atoms per step against the block-start residual."""
 
     dict_size: int = 200
     words_max: int = 10

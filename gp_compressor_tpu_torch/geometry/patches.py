@@ -13,8 +13,8 @@ Scatter indices are never left out of range: what JAX drops with
 `mode='drop'` goes to an extra dump row here, which is sliced off. The
 `shuffle` bank order takes its random source explicitly: a
 `torch.Generator`, or the [B, P] 32-bit values themselves (the tests feed
-the bits JAX drew). The raster (K-SVD) patches are not ported yet and
-raise NotImplementedError.
+the bits JAX drew). The K-SVD codec's raster patches share the plane fits
+and claims (build_raster_patches).
 """
 
 from __future__ import annotations
@@ -422,10 +422,79 @@ def build_patches(points: torch.Tensor, colors: torch.Tensor,
         n_leaves=grid.n_leaves)
 
 
+class RasterBatch(NamedTuple):
+    """Rasterized patch images for the K-SVD codec. Claimed points go to
+    their grid cell with a per-cell mean, and each patch is demeaned by
+    its mean over ALL sz*sz cells, the empty ones included: a reference
+    quirk kept exactly (src/pointcloud_compressor.cpp:92-116)."""
+
+    grid: VoxelGrid
+    rotations: torch.Tensor    # [B, 3, 3]
+    means: torch.Tensor        # [B, 3] centers (cell-mean adjusted)
+    rgb_means: torch.Tensor    # [B, 3] per-channel means over all cells
+    S: torch.Tensor            # [B, G] demeaned cell depth image
+    RGB: torch.Tensor          # [B, G, 3] demeaned cell colour image
+    W: torch.Tensor            # [B, G] bool occupancy
+    n_leaves: torch.Tensor     # 0-dim int32
+    # per point, for the in-sample RMS (compute_rms_error,
+    # src/pointcloud_compressor.cpp:182-205)
+    claims: torch.Tensor       # [N] int32 gp_index or -1
+    cells: torch.Tensor        # [N] int32 flattened cell of each point
+    depth_demeaned: torch.Tensor  # [N] local depth minus the patch mean
+
+
 def build_raster_patches(points: torch.Tensor, colors: torch.Tensor,
-                         valid: torch.Tensor, cfg: PatchConfig):
-    """Rasterized patch images for the K-SVD codec: arrive with that slice."""
-    raise NotImplementedError("build_raster_patches is not ported")
+                         valid: torch.Tensor, cfg: PatchConfig) -> RasterBatch:
+    """pointcloud_compressor::project_points: plane fits and claims as in
+    build_patches, then per-cell sums over B*G cells plus one overflow
+    row that takes the unclaimed points."""
+    B, sz = cfg.max_patches, cfg.sz
+    G = sz * sz
+    grid, R, centers_all, claim, loc_claim, claimed = claim_points(
+        points, valid, cfg)
+    ones = claimed.to(points.dtype)
+    cell = grid_cell(loc_claim[:, 1:], grid.res, sz)
+    flat = torch.where(claimed, claim * G + cell, B * G)
+    payload = torch.cat([ones[:, None], (loc_claim[:, 0] * ones)[:, None],
+                         colors * ones[:, None]], 1)               # [N, 5]
+    sums = _segment_sum(payload, flat, B * G + 1)[:B * G]
+    cnt = sums[:, 0]
+    safe = torch.clamp(cnt, min=1.0)
+    S = (sums[:, 1] / safe).reshape(B, G)
+    RGB = (sums[:, 2:] / safe[:, None]).reshape(B, G, 3)
+    W = (cnt > 0).reshape(B, G)
+    mn = torch.mean(S, dim=1)                                       # [B]
+    cmn = torch.mean(RGB, dim=1)                                    # [B, 3]
+    depth_dm = loc_claim[:, 0] - mn[torch.where(claimed, claim, 0).long()]
+    return RasterBatch(
+        grid=grid, rotations=R, means=centers_all + mn[:, None] * R[:, :, 0],
+        rgb_means=cmn, S=S - mn[:, None], RGB=RGB - cmn[:, None, :], W=W,
+        n_leaves=grid.n_leaves,
+        claims=torch.where(claimed, claim, -1).to(torch.int32),
+        cells=cell.to(torch.int32), depth_demeaned=depth_dm)
+
+
+def raster_reproject(batch: RasterBatch, S_rec: torch.Tensor,
+                     RGB_rec: torch.Tensor, sz: int, res: float):
+    """pointcloud_decompressor::reproject_cloud: one world point per
+    OCCUPIED cell, at the cell centre, with the reconstructed depth and
+    colours (non-finite colours become 255, then all are clamped to
+    [0, 255]). S_rec: [B, G]; RGB_rec: [B, G, 3] demeaned. Returns
+    (points [B*G, 3], colors [B*G, 3], valid [B*G])."""
+    B, G = S_rec.shape
+    dt, dev = S_rec.dtype, S_rec.device
+    m = torch.arange(G, device=dev)
+    x = torch.div(m, sz, rounding_mode='floor').to(dt)     # cell = sz*x + y
+    y = (m % sz).to(dt)
+    u = res * (x + 0.5) / sz - res / 2.0
+    v = res * (y + 0.5) / sz - res / 2.0
+    world = reproject(batch, S_rec, torch.stack([u, v], dim=-1))
+    colors = RGB_rec + batch.rgb_means[:, None, :]
+    colors = torch.clamp(torch.where(torch.isfinite(colors), colors, 255.0),
+                         0.0, 255.0)
+    okp = batch.W & (torch.arange(B, device=dev)[:, None] < batch.n_leaves)
+    return (world.reshape(B * G, 3), colors.reshape(B * G, 3),
+            okp.reshape(B * G))
 
 
 def prediction_grid(cfg: PatchConfig, dtype=torch.float32,
@@ -445,10 +514,12 @@ def prediction_grid(cfg: PatchConfig, dtype=torch.float32,
     return torch.stack([u, v], dim=-1)
 
 
-def reproject(batch: PatchBatch, depth: torch.Tensor,
+def reproject(batch, depth: torch.Tensor,
               grid_uv: torch.Tensor) -> torch.Tensor:
     """Rotate per-patch grid predictions back to world coordinates:
-    p = R [f, u, v]^T + mean. depth: [B, G]; grid_uv: [G, 2] -> [B, G, 3]."""
+    p = R [f, u, v]^T + mean. batch: a PatchBatch or a RasterBatch (the
+    JAX package's reproject_raster is this function); depth: [B, G];
+    grid_uv: [G, 2] -> [B, G, 3]."""
     B, G = depth.shape
     local = torch.cat([depth[..., None], grid_uv.expand(B, G, 2)], dim=-1)
     return torch.matmul(local, batch.rotations.transpose(1, 2)) \

@@ -5,7 +5,8 @@ per-patch plane fit is the smallest eigenvector of the 4x4 homogeneous
 second-moment matrix, found by batched cyclic Jacobi rotations, and the
 frame follows the reference's sign and axis conventions
 (src/gp_compressor.cpp:38-63) exactly — no downstream check can agree
-otherwise.
+otherwise. The quaternion pair of the artifact format works on batches
+(the JAX package vmaps its single-matrix forms).
 """
 
 from __future__ import annotations
@@ -102,3 +103,42 @@ def rotation_from_moment_batch(M: torch.Tensor, npoints: torch.Tensor,
     eye = torch.eye(3, dtype=M.dtype, device=M.device)
     bad = (npoints < min_points) | (norm[:, 0] <= 0)
     return torch.where(bad[:, None, None], eye, R)
+
+
+def matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices [..., 3, 3] -> quaternions [..., 4] in (x, y, z, w)
+    order, Eigen's coeffs() as the artifact format stores them. All four
+    Shepperd constructions are built and the one with the largest pivot
+    is taken (the first on ties); the sign follows that case, not w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                      1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
+    case = torch.argmax(qw, dim=-1, keepdim=True)
+    s = torch.sqrt(torch.clamp(torch.gather(qw, -1, case), min=1e-12)) * 2.0
+    q = torch.stack([
+        torch.stack([m21 - m12, m02 - m20, m10 - m01, qw[..., 0]], -1),
+        torch.stack([qw[..., 1], m01 + m10, m02 + m20, m21 - m12], -1),
+        torch.stack([m01 + m10, qw[..., 2], m12 + m21, m02 - m20], -1),
+        torch.stack([m02 + m20, m12 + m21, qw[..., 3], m10 - m01], -1),
+    ], -2) / s[..., None]                                      # [..., 4, 4]
+    q = torch.take_along_dim(q, case[..., None], dim=-2)[..., 0, :]
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions [..., 4] in (x, y, z, w) order -> rotation matrices
+    [..., 3, 3] (a zero quaternion gives the identity)."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = torch.where(n > 0, 2.0 / n, 0.0)
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], -1),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], -1),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], -1),
+    ], -2)

@@ -16,12 +16,14 @@ import numpy as np
 import torch
 
 from gp_compressor_tpu_torch import config as config_mod
-from gp_compressor_tpu_torch.geometry.patches import PatchBatch
+from gp_compressor_tpu_torch.geometry.patches import PatchBatch, RasterBatch
 from gp_compressor_tpu_torch.geometry.voxel import VoxelGrid
 from gp_compressor_tpu_torch.inference.smc import ParticleState
 from gp_compressor_tpu_torch.inference.vi import VIResult
+from gp_compressor_tpu_torch.models.dictionary import KSVDResult, OMPCode
 from gp_compressor_tpu_torch.models.sparse_gp import SOGPState
 from gp_compressor_tpu_torch.workloads.compressor import CompressedCloud
+from gp_compressor_tpu_torch.workloads.ksvd_compressor import KSVDCompressed
 from gp_compressor_tpu_torch.workloads.mapping import MapState
 from gp_compressor_tpu_torch.workloads.registration import (ClaimTables,
                                                            RegistrationState)
@@ -52,6 +54,26 @@ def compressed_from_numpy(d, device=None) -> CompressedCloud:
     return CompressedCloud(patch=patch_batch_from_numpy(d["patch"], device),
                            depth_gp=state_from_numpy(d["depth_gp"], device),
                            rgb_gp=state_from_numpy(d["rgb_gp"], device))
+
+
+def ksvd_result_from_numpy(d, device=None) -> KSVDResult:
+    return KSVDResult(D=_t(d["D"], device),
+                      code=_tuple(OMPCode, d["code"], device),
+                      error=_t(d["error"], device), iters=int(d["iters"]))
+
+
+def ksvd_compressed_from_numpy(d, device=None) -> KSVDCompressed:
+    """KSVDCompressed from the JAX KSVDCompressed's fields (raster, depth
+    and rgb as nested dicts, cfg as `dataclasses.asdict` of the JAX
+    CompressorConfig)."""
+    fields = {f: _t(d["raster"][f], device) for f in RasterBatch._fields
+              if f != "grid"}
+    raster = RasterBatch(grid=grid_from_numpy(d["raster"]["grid"], device),
+                         **fields)
+    return KSVDCompressed(raster=raster,
+                          depth=ksvd_result_from_numpy(d["depth"], device),
+                          rgb=ksvd_result_from_numpy(d["rgb"], device),
+                          cfg=compressor_config_from_dict(d["cfg"]))
 
 
 def _config(cls, d):

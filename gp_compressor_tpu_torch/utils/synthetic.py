@@ -1,8 +1,9 @@
 """Synthetic coloured point clouds for tests and benchmarks.
 
-A numpy copy of `gp_compressor_tpu.utils.synthetic.room_cloud`: the port
-may not import the JAX package, and the tests require this copy to return
-byte-identical arrays for the same arguments.
+Numpy copies of `room_cloud` and `rigid_transform` from
+`gp_compressor_tpu.utils.synthetic`: the port may not import the JAX
+package, and the tests require these copies to return byte-identical
+arrays for the same arguments.
 """
 
 from __future__ import annotations
@@ -68,3 +69,17 @@ def room_cloud(n: int = 100_000, seed: int = 0, extent: float = 3.0,
     pts = pts + noise * r.standard_normal(pts.shape).astype(np.float32)
     perm = r.permutation(n)
     return pts[perm], colors[perm]
+
+
+def rigid_transform(points: np.ndarray, rotvec, t):
+    """Apply an axis-angle + translation rigid transform (for registration
+    ground truth, replacing TUM trajectories)."""
+    rotvec = np.asarray(rotvec, np.float64)
+    th = np.linalg.norm(rotvec)
+    if th < 1e-12:
+        R = np.eye(3)
+    else:
+        k = rotvec / th
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+    return (points @ R.T + np.asarray(t)).astype(points.dtype), R

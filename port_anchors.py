@@ -27,15 +27,39 @@ the 300k-point `room_cloud(seed=0)` at the bench configuration
   * nuts_seeds: the 16-chain NUTS row at NUTS_SEEDS further seeds (keys
     100 + i for the starts, 200 + i for the sampler): max split-R-hat and
     the per-axis standard deviation of each run, the spread that one
-    anchor run cannot show.
+    anchor run cannot show;
+  * ksvd: the K-SVD row (`bench.py:779-822`: `ksvd_compressor.compress`
+    with atom_block 16 for depth and RGB) at keys 1-4: in-sample RMS,
+    depth and RGB masked MSE, sweep counts and mean words per valid
+    patch, and the range of each over the keys;
+  * icp: `icp.icp_register` on the headline map, the full cloud moved by
+    registration's perturbation (ANG, T_TRUE): iterations, translation and
+    rotation error, initial and final mean point error, plane-residual
+    RMS, matched points;
+  * accuracy: `cli.py` gp-accuracy (`cmd_gp_accuracy`) at its defaults
+    (100k points, res 0.3, sz 10, 4096 patches of 256 points, capacity
+    100, step 0.005, 150 steps, motion magnitudes 0.02 m / 0.005 rad) at
+    seeds 0 to ACC_PAIRS - 1, GP `register` and `icp_register` on each
+    pair: steps, translation and rotation error, initial and final mean
+    point error; the median and worst final error of each method;
+  * accuracy_noise: the first registration gradient of gp-accuracy's pairs
+    at seeds 0-2, in float32 and on the same float32 states cast to
+    float64 (x64 switched on after the map is built): how much of the
+    gradient at the reference GP constants is rounding;
+  * accuracy_resets: gp-accuracy's GP constants at a small size (12k
+    points, 384 patches of 64 points), trained in float32 and in float64
+    (x64 on): the depth and RGB patches holding points that sanitize
+    leaves empty, per seed 0-2.
 
     JAX_PLATFORMS=cpu python3 port_anchors.py [section ...]
 
 with sections among headline, calibrated, registration, mapping, bayes,
-nuts_seeds (all when none is named; registration needs calibrated and
-headline). It needs the
-JAX package and a few GiB of host memory, and takes some minutes on the
-CPU; the port's machine does not run it.
+nuts_seeds, ksvd, icp, accuracy, accuracy_noise, accuracy_resets (all
+but the last two, which switch x64 on and so each run alone, when none
+is named;
+registration needs calibrated and headline, icp needs headline). It needs the JAX
+package and a few GiB of host memory, and takes some minutes on the CPU
+(accuracy ~20); the port's machine does not run it.
 """
 
 from __future__ import annotations
@@ -76,7 +100,124 @@ def bench_config():
                             bank_order="center_out"),
         depth_gp=c.GPConfig(capacity=30, slots=32, eps_tol=2.0),
         rgb_gp=dataclasses.replace(c.rgb_gp_config(slots=32, capacity=30),
-                                   eps_tol=2.0))
+                                   eps_tol=2.0),
+        ksvd=c.KSVDConfig(atom_block=16),
+        rgb_ksvd=dataclasses.replace(c.rgb_ksvd_config(), atom_block=16))
+
+
+KSVD_KEYS = (1, 2, 3, 4)
+
+
+def ksvd_anchors(pts, cols, valid, cfg):
+    """The K-SVD row of bench.py:779-822 on the CPU (float32) at
+    KSVD_KEYS."""
+    from gp_compressor_tpu.workloads import ksvd_compressor
+
+    runs = []
+    for k in KSVD_KEYS:
+        t0 = time.time()
+        comp = ksvd_compressor.compress(pts, cols, valid, cfg,
+                                        jax.random.key(k))
+        n = int(comp.raster.n_leaves)
+        B = comp.raster.S.shape[0]
+        nw_rgb = np.asarray(comp.rgb.code.nw).reshape(3, B)[:, :n]
+        runs.append({
+            "key": k, "rms": ksvd_compressor.rms_error(comp),
+            "depth_mse": float(comp.depth.error),
+            "rgb_mse": float(comp.rgb.error),
+            "depth_iters": int(comp.depth.iters),
+            "rgb_iters": int(comp.rgb.iters),
+            "depth_mean_words": float(np.mean(
+                np.asarray(comp.depth.code.nw)[:n])),
+            "rgb_mean_words": float(np.mean(nw_rgb)),
+            "n_leaves": n, "cpu_wall_s": time.time() - t0})
+        print(json.dumps({"ksvd_key": runs[-1]}), flush=True)
+    return {"runs": runs, "range": {
+        f: [min(r[f] for r in runs), max(r[f] for r in runs)]
+        for f in runs[0] if f not in ("key", "cpu_wall_s")}}
+
+
+def icp_anchors(pts, valid, cfg, comp):
+    """icp_register on the headline map, the whole cloud moved by the
+    registration rows' perturbation."""
+    from gp_compressor_tpu.workloads import icp
+
+    R_true = transforms.euler_xyz(jnp.asarray(ANG, jnp.float32))
+    t_true = jnp.asarray(T_TRUE, jnp.float32)
+    moved = transforms.apply(pts, R_true, t_true)
+    res = icp.icp_register(comp, moved, valid, cfg)
+    terr, rerr = registration.registration_error(res.R, res.t, R_true,
+                                                 t_true)
+    out = transforms.apply(moved, res.R, res.t)
+    return {"iters": int(res.iters), "trans_err": float(terr),
+            "rot_err": float(rerr),
+            "initial_mean_err": float(jnp.mean(jnp.linalg.norm(
+                moved - pts, axis=1))),
+            "final_mean_err": float(jnp.mean(jnp.linalg.norm(
+                out - pts, axis=1))),
+            "rms_residual": float(res.rms_residual),
+            "n_matched": int(res.n_matched)}
+
+
+ACC_PAIRS, ACC_POINTS = 20, 100_000
+
+
+def accuracy_config():
+    """cli.py _gp_config at gp-accuracy's defaults (cli.py:380-416)."""
+    return c.CompressorConfig(
+        patch=c.PatchConfig(res=0.3, sz=10, max_patches=4096,
+                            max_points_per_patch=256),
+        depth_gp=c.GPConfig(capacity=100, slots=101, eps_tol=1e-6),
+        rgb_gp=c.rgb_gp_config(slots=101, capacity=100))
+
+
+def accuracy_anchors():
+    """cmd_gp_accuracy (cli.py:193-253) with --baseline icp at seeds 0 to
+    ACC_PAIRS - 1."""
+    from gp_compressor_tpu.workloads import icp
+
+    cfg = accuracy_config()
+    rcfg = RegistrationConfig(step=0.005, max_steps=150)
+    half = ACC_POINTS // 2
+    icp_fn = jax.jit(icp.icp_register, static_argnames=("cfg",))
+    pairs = []
+    for seed in range(ACC_PAIRS):
+        pts, cols = synthetic.room_cloud(n=ACC_POINTS, seed=seed)
+        comp = compressor.compress(jnp.asarray(pts[:half]),
+                                   jnp.asarray(cols[:half]),
+                                   jnp.ones(half, bool), cfg,
+                                   jax.random.key(seed))
+        rng = np.random.default_rng(seed)
+        rotvec = 0.005 * rng.standard_normal(3)
+        t_true = 0.02 * rng.standard_normal(3)
+        scan, R_true = synthetic.rigid_transform(pts[half:], rotvec, t_true)
+        ones = jnp.ones(len(scan), bool)
+        st, aligned = registration.register(
+            comp, jnp.asarray(scan), jnp.asarray(cols[half:]), ones, cfg,
+            rcfg)
+        res = icp_fn(comp, jnp.asarray(scan), ones, cfg)
+        err = lambda p: float(np.linalg.norm(np.asarray(p) - pts[half:],
+                                             axis=1).mean())
+        Rt = jnp.asarray(R_true, jnp.float32)
+        tt = jnp.asarray(t_true, jnp.float32)
+        gte, gre = registration.registration_error(st.R_cloud, st.t_exact,
+                                                   Rt, tt)
+        ite, ire = registration.registration_error(res.R, res.t, Rt, tt)
+        pairs.append({
+            "seed": seed, "initial_mean_err": err(scan),
+            "gp": {"steps": int(st.step_nbr), "final_mean_err": err(aligned),
+                   "trans_err": float(gte), "rot_err": float(gre)},
+            "icp": {"iters": int(res.iters),
+                    "final_mean_err": err(transforms.apply(
+                        jnp.asarray(scan), res.R, res.t)),
+                    "trans_err": float(ite), "rot_err": float(ire)}})
+        print(json.dumps({"accuracy_pair": pairs[-1]}), flush=True)
+    summary = {m: {"median_final_mean_err": float(np.median(
+        [p[m]["final_mean_err"] for p in pairs])),
+        "worst_final_mean_err": float(np.max(
+            [p[m]["final_mean_err"] for p in pairs]))}
+        for m in ("gp", "icp")}
+    return {"pairs": pairs, "summary": summary}
 
 
 def hist(state):
@@ -259,6 +400,87 @@ def bayes_anchors(pts, cols, valid, cfg, comp):
     return out
 
 
+def accuracy_noise_anchors(seeds=(0, 1, 2)):
+    """compute_transformation on gp-accuracy's first pairs (the map at
+    x64 off, as accuracy_anchors builds it), in float32 and on the same
+    states cast to float64. Switches x64 on."""
+    half = ACC_POINTS // 2
+    cfg = accuracy_config()
+    rcfg = RegistrationConfig(step=0.005, max_steps=150)
+    maps = []
+    for seed in seeds:
+        pts, cols = synthetic.room_cloud(n=ACC_POINTS, seed=seed)
+        comp = compressor.compress(jnp.asarray(pts[:half]),
+                                   jnp.asarray(cols[:half]),
+                                   jnp.ones(half, bool), cfg,
+                                   jax.random.key(seed))
+        rng = np.random.default_rng(seed)
+        scan, _ = synthetic.rigid_transform(
+            pts[half:], 0.005 * rng.standard_normal(3),
+            0.02 * rng.standard_normal(3))
+        maps.append((comp, scan, cols[half:]))
+    jax.config.update("jax_enable_x64", True)
+    f64 = lambda x: (x.astype(jnp.float64) if getattr(x, "dtype", None)
+                     == jnp.float32 else x)
+    gp64 = {k: dataclasses.replace(getattr(cfg, k), dtype=jnp.float64)
+            for k in ("depth_gp", "rgb_gp")}
+    cfg64 = dataclasses.replace(cfg, **gp64)
+    out = []
+    for seed, (comp, scan, cols) in zip(seeds, maps):
+        ones = jnp.ones(half, bool)
+        d32 = registration.compute_transformation(
+            comp, jnp.asarray(scan, jnp.float32),
+            jnp.asarray(cols, jnp.float32), ones, cfg, rcfg)[0]
+        d64 = registration.compute_transformation(
+            jax.tree.map(f64, comp), jnp.asarray(scan, jnp.float64),
+            jnp.asarray(cols, jnp.float64), ones, cfg64, rcfg)[0]
+        d32, d64 = np.asarray(d32, np.float64), np.asarray(d64)
+        out.append({"seed": seed, "delta_f32": d32.tolist(),
+                    "delta_f64": d64.tolist(),
+                    "max_rel_gap": float(np.max(np.abs(d32 - d64))
+                                         / np.max(np.abs(d64)))})
+        print(json.dumps({"accuracy_noise": out[-1]}), flush=True)
+    return out
+
+
+def accuracy_resets_anchors(seeds=(0, 1, 2)):
+    """gp-accuracy's GP constants (sigma_f^2 100, l^2 1, s20 0.1, eps_tol
+    1e-6) at a small size (12k-point clouds, the first half compressed:
+    res 0.3, sz 10, 384 patches of 64 points, 32 slots, capacity 30),
+    trained in float32 and then, x64 switched on, in float64: per seed
+    the patches holding points, the depth and RGB patches that sanitize
+    leaves empty, and the mean depth BV count over patches with points.
+    Switches x64 on."""
+    def cfg(dt):
+        return c.CompressorConfig(
+            patch=c.PatchConfig(res=0.3, sz=10, max_patches=384,
+                                max_points_per_patch=64),
+            depth_gp=c.GPConfig(capacity=30, slots=32, eps_tol=1e-6,
+                                dtype=dt),
+            rgb_gp=c.rgb_gp_config(slots=32, capacity=30, dtype=dt))
+
+    out = []
+    for name, dt in (("f32", jnp.float32), ("f64", None)):
+        if dt is None:
+            jax.config.update("jax_enable_x64", True)
+            dt = jnp.float64
+        for seed in seeds:
+            pts, cols = synthetic.room_cloud(n=12_000, seed=seed)
+            comp = compressor.compress(
+                jnp.asarray(pts[:6000], dt), jnp.asarray(cols[:6000], dt),
+                jnp.ones(6000, bool), cfg(dt), jax.random.key(seed))
+            used = np.asarray(comp.patch.mask).any(1)
+            dsz = np.asarray(comp.depth_gp.active).sum(1)
+            csz = np.asarray(comp.rgb_gp.active).sum(1)
+            out.append({"dtype": name, "seed": seed,
+                        "patches_with_points": int(used.sum()),
+                        "depth_emptied": int(((dsz == 0) & used).sum()),
+                        "rgb_emptied": int(((csz == 0) & used).sum()),
+                        "mean_depth_bvs": float(dsz[used].mean())})
+            print(json.dumps({"accuracy_resets": out[-1]}), flush=True)
+    return out
+
+
 def main(sections):
     t_start = time.time()
     cfg = bench_config()
@@ -271,8 +493,18 @@ def main(sections):
     if "mapping" in sections:
         out["mapping"] = mapping_anchors(pts, cols, valid, cfg)
         print(json.dumps({"mapping": out["mapping"]}), flush=True)
+    if "ksvd" in sections:
+        out["ksvd"] = ksvd_anchors(pts, cols, valid, cfg)
+        print(json.dumps({"ksvd": out["ksvd"]}), flush=True)
+    if "accuracy" in sections:
+        out["accuracy"] = accuracy_anchors()
+        print(json.dumps({"accuracy": out["accuracy"]}), flush=True)
+    if sections == {"accuracy_noise"}:
+        out["accuracy_noise"] = accuracy_noise_anchors()
+    if sections == {"accuracy_resets"}:
+        out["accuracy_resets"] = accuracy_resets_anchors()
     if not sections & {"headline", "calibrated", "registration", "bayes",
-                       "nuts_seeds"}:
+                       "nuts_seeds", "icp"}:
         out["seconds"] = time.time() - t_start
         out["jax"] = jax.__version__
         print(json.dumps(out), flush=True)
@@ -286,6 +518,9 @@ def main(sections):
         "rmse": float(compressor.reconstruction_rmse(comp, cfg)),
         "depth_bv_hist": hist(comp.depth_gp)}
     print(json.dumps(out["headline"]), flush=True)
+    if "icp" in sections:
+        out["icp"] = icp_anchors(pts, valid, cfg, comp)
+        print(json.dumps({"icp": out["icp"]}), flush=True)
     if "bayes" in sections:
         out["bayes"] = bayes_anchors(pts, cols, valid, cfg, comp)
     if "nuts_seeds" in sections:
@@ -348,4 +583,5 @@ def main(sections):
 
 if __name__ == "__main__":
     main(set(sys.argv[1:]) or {"headline", "calibrated", "registration",
-                               "mapping", "bayes", "nuts_seeds"})
+                               "mapping", "bayes", "nuts_seeds", "ksvd",
+                               "icp", "accuracy"})

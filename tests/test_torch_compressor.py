@@ -138,6 +138,11 @@ def test_port_imports_no_jax():
             "import gp_compressor_tpu_torch.workloads.registration\n"
             "import gp_compressor_tpu_torch.workloads.mapping\n"
             "import gp_compressor_tpu_torch.testing.mapping_case\n"
+            "import gp_compressor_tpu_torch.models.dictionary\n"
+            "import gp_compressor_tpu_torch.workloads.ksvd_compressor\n"
+            "import gp_compressor_tpu_torch.workloads.icp\n"
+            "import gp_compressor_tpu_torch.io.artifact\n"
+            "import gp_compressor_tpu_torch.testing.ksvd_case\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'gp_compressor_tpu.')) or m == "
             "'gp_compressor_tpu']\n"

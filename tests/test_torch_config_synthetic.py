@@ -83,3 +83,15 @@ def test_room_cloud_is_byte_identical(n, seed):
     for a, b in ((pj, pt), (cj, ct)):
         assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
         assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("rotvec,t,dtype", [
+    ([0.0, 0.008, -0.006], [0.02, -0.015, 0.01], np.float32),
+    ([0.3, -1.2, 2.5], [1.0, 2.0, -3.0], np.float64),
+    ([0.0, 0.0, 0.0], [0.5, 0.0, 0.0], np.float32)])
+def test_rigid_transform_is_byte_identical(rotvec, t, dtype):
+    pts = np.random.default_rng(3).standard_normal((500, 3)).astype(dtype)
+    pj, Rj = jsyn.rigid_transform(pts, rotvec, t)
+    pt, Rt = tsyn.rigid_transform(pts, rotvec, t)
+    assert pj.dtype == pt.dtype == dtype
+    assert pj.tobytes() == pt.tobytes() and Rj.tobytes() == Rt.tobytes()

@@ -221,8 +221,9 @@ def test_prediction_grid_and_reproject_match_jax():
 
 
 def test_unported_front_end_paths_raise():
-    """Only the raster (K-SVD) patches are left unported: every bank order
-    builds (tests/test_torch_bank_order.py holds them to JAX)."""
+    """No front-end path is left unported: every bank order builds
+    (tests/test_torch_bank_order.py holds them to JAX); a bank order that
+    neither package has raises."""
     pts, cols, valid = _cloud()
     for order in ("shuffle", "edge_in", "far_center"):
         cfg = TPatchConfig(**dict(KW, bank_order=order))
@@ -230,6 +231,15 @@ def test_unported_front_end_paths_raise():
     with pytest.raises(ValueError):
         tpatches.build_patches(_t(pts), _t(cols), _t(valid),
                                TPatchConfig(**dict(KW, bank_order="spiral")))
-    with pytest.raises(NotImplementedError):
-        tpatches.build_raster_patches(_t(pts), _t(cols), _t(valid),
-                                      TPatchConfig(**KW))
+
+
+def test_raster_patches_claim_like_build_patches():
+    """The raster (K-SVD) patches build on the same leaves and claims as
+    the GP patches (tests/test_torch_ksvd_compressor.py holds them to
+    JAX)."""
+    pts, cols, valid = _cloud()
+    cfg = TPatchConfig(**KW)
+    tb = tpatches.build_patches(_t(pts), _t(cols), _t(valid), cfg)
+    rb = tpatches.build_raster_patches(_t(pts), _t(cols), _t(valid), cfg)
+    assert int(rb.n_leaves) == int(tb.n_leaves)
+    np.testing.assert_array_equal(rb.claims.numpy(), tb.claims.numpy())

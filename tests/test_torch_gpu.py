@@ -10,7 +10,9 @@ dense loop), and the kernel's inline division against IEEE division;
 then the Bayesian layer on the card against the CPU with the same draws
 in float64 (a NUTS transition, HMC steps, ADVI steps, an SMC refinement
 step against the small mapping case's map), and compress_calibrated
-(method="hmc") launching the kernel twice.
+(method="hmc") launching the kernel twice; the K-SVD codec (OMP and one
+outer sweep on the card against the CPU in float64 with the same draws,
+one stop-test read per sweep) and ICP on the card against the CPU.
 
 This file imports no JAX. Run it on a machine with a CUDA card:
 
@@ -91,6 +93,19 @@ def test_strict_regimes_over_slot_counts(dev, name, slots):
     cfg, X, Y, M = _inputs(dev, name, slots=slots)
     ref, out = _both(dev, cfg, X, Y, M)
     sogp_regimes.compare(name, ref, out, X, Y, M)
+
+
+@pytest.mark.parametrize("rows,rule", [(40, "strict"), (96, "strict"),
+                                       (160, "calibrated")])
+@pytest.mark.parametrize("name", ["strict_d1", "strict_d3"])
+def test_many_bvs_at_101_slots(dev, name, rows, rule):
+    """gp-accuracy's state size with up to 90 BVs (a lane's slots 1-3
+    active) by the strict rule, and with capacity deletions at 100 BVs,
+    where float32 can flip a deletion choice, by the calibrated rule."""
+    cfg, X, Y, M = _inputs(dev, name, slots=101, capacity=100, points=rows)
+    ref, out = _both(dev, cfg, X, Y, M)
+    assert int(sparse_gp.size(ref).max()) > 32
+    sogp_regimes.compare(rule, ref, out, X, Y, M)
 
 
 def test_realistic_regime_at_32_slots(dev):
@@ -348,3 +363,86 @@ def test_hmc_calibrated_compress_launches_the_kernel(dev):
     rmse = float(compressor.reconstruction_rmse(comp, cal, depth_kp=kp,
                                                 depth_s20=s20))
     assert rmse < 0.08
+
+
+@pytest.mark.parametrize("block", [1, 16])
+def test_ksvd_sweep_on_card_matches_cpu(dev, block):
+    """omp_encode and one outer sweep (the atom sweep in Gauss-Seidel order
+    and in blocks of 16 over 40 atoms: a short last block), card against
+    CPU in float64 with the same draws."""
+    from gp_compressor_tpu_torch.config import KSVDConfig
+    from gp_compressor_tpu_torch.testing import ksvd_case
+
+    cfg = KSVDConfig(dict_size=40, words_max=3, proj_error=1e-8,
+                     atom_block=block)
+    res = ksvd_case.sweep_parity(*ksvd_case.problem(), cfg, dev)
+    assert res["indices_equal"], res
+    for k in ("omp_X", "sweep_D", "sweep_X", "sweep_err"):
+        assert res[k] <= 1e-9, res
+
+
+def _ksvd_cloud(dev):
+    from gp_compressor_tpu_torch import config as c
+    from gp_compressor_tpu_torch.utils import synthetic
+
+    cfg = c.CompressorConfig(
+        patch=c.PatchConfig(res=0.3, sz=10, max_patches=512,
+                            max_points_per_patch=256),
+        ksvd=c.KSVDConfig(dict_size=40, words_max=6, proj_error=1e-4,
+                          stop_diff=1e-4, max_iters=8, atom_block=16),
+        rgb_ksvd=c.KSVDConfig(dict_size=60, words_max=8, proj_error=1e-1,
+                              stop_diff=1e-1, max_iters=8, atom_block=16))
+    pts, cols = (torch.from_numpy(a).to(dev)
+                 for a in synthetic.room_cloud(n=6000, seed=5))
+    return pts, cols, torch.ones(6000, dtype=torch.bool, device=dev), cfg
+
+
+def test_ksvd_compress_reads_once_per_sweep(dev):
+    """ksvd_compressor.compress on the card reads the device once per sweep
+    of each ksvd call (at most iters + 1 per call), launches no training
+    kernel, and decompresses to finite points."""
+    from gp_compressor_tpu_torch.models import dictionary
+    from gp_compressor_tpu_torch.workloads import ksvd_compressor
+
+    pts, cols, valid, cfg = _ksvd_cloud(dev)
+    n0 = sogp_train.LAUNCHES
+    dictionary.READS = 0
+    comp = ksvd_compressor.compress(pts, cols, valid, cfg)
+    torch.cuda.synchronize()
+    assert dictionary.READS == comp.depth.iters + comp.rgb.iters
+    assert 1 <= comp.depth.iters <= 8 and 1 <= comp.rgb.iters <= 8
+    assert sogp_train.LAUNCHES == n0
+    assert ksvd_compressor.rms_error(comp) < 0.08
+    w, c, ok = ksvd_compressor.decompress(comp)
+    assert torch.isfinite(w[ok]).all() and torch.isfinite(c).all()
+
+
+def test_icp_register_on_card_matches_cpu(dev):
+    """icp_register on a small map (compressed on the CPU in float64, then
+    moved to the card): the same iterations, R and t within 1e-9."""
+    from gp_compressor_tpu_torch import config as c
+    from gp_compressor_tpu_torch.testing import bayes_case
+    from gp_compressor_tpu_torch.utils import synthetic
+    from gp_compressor_tpu_torch.workloads import compressor, icp
+
+    cfg = c.CompressorConfig(
+        patch=c.PatchConfig(res=0.3, sz=10, max_patches=512,
+                            max_points_per_patch=64),
+        depth_gp=c.GPConfig(capacity=14, slots=16, dtype=torch.float64),
+        rgb_gp=c.rgb_gp_config(slots=16, capacity=14, dtype=torch.float64))
+    pts, cols = synthetic.room_cloud(n=9000, seed=4)
+    pts = pts.astype("float64")
+    comp = compressor.compress(torch.from_numpy(pts[:4500]),
+                               torch.from_numpy(cols[:4500]).double(),
+                               torch.ones(4500, dtype=torch.bool), cfg)
+    scan, _ = synthetic.rigid_transform(pts[4500:], [0.0, 0.008, -0.006],
+                                        [0.02, -0.015, 0.01])
+    scan = torch.from_numpy(scan)
+    valid = torch.ones(4500, dtype=torch.bool)
+    ref = icp.icp_register(comp, scan, valid, cfg)
+    out = icp.icp_register(bayes_case.to_device(comp, dev), scan.to(dev),
+                           valid.to(dev), cfg)
+    assert out.iters == ref.iters > 1
+    assert int(out.n_matched) == int(ref.n_matched)
+    for a, b in ((out.R, ref.R), (out.t, ref.t)):
+        assert float(torch.max(torch.abs(a.cpu() - b))) <= 1e-9

@@ -7,6 +7,7 @@ invariant the CUDA kernel's active-slot loops rest on (inactive slots stay
 exactly zero), the state with a NaN, and the kernel's launch geometry.
 Inputs are numpy arrays from a seed, pinned to float32 on both sides."""
 
+import dataclasses
 import functools
 
 import jax
@@ -324,3 +325,29 @@ def test_cpu_wrapper_takes_the_plain_version_and_checks_inputs():
                              tsg.init_batch(cfg, 7), torch.from_numpy(X),
                              torch.from_numpy(Y), torch.from_numpy(mask),
                              keys=jax.random.split(jax.random.key(0), 7))
+
+
+def test_arbitrated_rule_passes_plain_and_rejects_astray_patches():
+    """The `arbitrated` rule at the reference GP constants over 4 m
+    patches, where float32 training leaves a part of the patches astray
+    of float64: the float32 plain version passes against itself, and a
+    trainer whose every patch is poisoned fails."""
+    cfg, X, Y, M = sogp_regimes.regime("strict_d1", points=40)
+    X = torch.from_numpy(X) * 0.1
+    Y, M = torch.from_numpy(Y) * 0.05, torch.from_numpy(M)
+    cfg = dataclasses.replace(cfg, capacity=30, slots=32, eps_tol=1e-6)
+    kp = sogp_regimes.params()
+    s20 = torch.tensor(cfg.s20)
+    init = tsg.init_batch(cfg, X.shape[0])
+    ref = sogp_train.add_points_batch_plain(kp, cfg, init, X, Y, M)
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    kp64 = type(kp)(*[v.double() for v in kp])
+    ref64 = sogp_train.add_points_batch_plain(
+        kp64, cfg64, tsg.init_batch(cfg64, X.shape[0]), X.double(),
+        Y.double(), M)
+    res = sogp_regimes.arbitrate(ref64, ref, ref, X, Y, M, kp, s20)
+    assert res["f64"]["astray"] == 0
+    assert 0 < res["plain"]["astray"] == res["out"]["astray"] < 130
+    bad = ref._replace(alpha=torch.full_like(ref.alpha, float("nan")))
+    with pytest.raises(AssertionError):
+        sogp_regimes.arbitrate(ref64, ref, bad, X, Y, M, kp, s20)
