@@ -84,6 +84,19 @@ Phases, each of which must pass (any failure exits non-zero):
                float32 and float64 over four clouds (same mode, the
                patches behind any RMSE gap, each bank by the float64
                referee).
+ 12. cli     — the command line (`python -m gp_compressor_tpu_torch.cli`,
+               driven through `cli.main`) on the card: gp-compress at its
+               defaults on the 300k-point cloud written as a binary PCD
+               (the native and NumPy readers agree; --out and --checkpoint
+               written, the checkpoint loads strictly and decompresses to
+               the --out bytes; two kernel launches; the kernel at these
+               4096 x 256 banks with 101 slots against its plain version
+               by the `arbitrated` rule, timed), compress -> decompress,
+               gp-accuracy's synthetic pair with ICP and a TUM-format
+               fixture, calibrate --map and calibrate (HMC), gp-mapping
+               over 5 synthetic scans and over the fixture; each held to
+               the JAX command line's numbers (port_anchors.py cli), each
+               subcommand's wall printed.
 
 The last three lines of standard output are the kernels' JSON object, the
 card's `nvidia-smi` name and power limit, and the result object.
@@ -222,6 +235,148 @@ ACC_JAX = {
 ACC_PAIRS, ACC_POINTS = 20, 100_000
 # pairs run again with map and registration in float64
 ACC_F64_PAIRS = 2
+# anchors of phase 12: the JAX command line at the same arguments on the
+# CPU in float32 (port_anchors.py cli, jax 0.9.0), at keys 0-3 where the
+# command draws from its key (calibrate's HMC at keys 0-11), gp-mapping
+# --dataset on the fixtures of seeds 0-3
+CLI_JAX = {
+    "gp_compress": [
+        {"n_points": 300000, "n_patches": 1675, "mean_added": 3.91,
+        "max_added": 10, "rms": 0.01949, "n_out": 9200},
+        {"n_points": 300000, "n_patches": 1675, "mean_added": 3.46,
+        "max_added": 7, "rms": 0.0198, "n_out": 9600},
+        {"n_points": 300000, "n_patches": 1675, "mean_added": 3.59,
+        "max_added": 8, "rms": 0.01937, "n_out": 8800},
+        {"n_points": 300000, "n_patches": 1675, "mean_added": 3.7, "max_added":
+        8, "rms": 0.021, "n_out": 9200},
+    ],
+    "compress": [
+        {"rms": 0.01728, "depth_iters": 22, "rgb_iters": 3, "n_out": 85565},
+        {"rms": 0.01723, "depth_iters": 28, "rgb_iters": 4, "n_out": 85565},
+        {"rms": 0.01743, "depth_iters": 18, "rgb_iters": 3, "n_out": 85565},
+        {"rms": 0.01731, "depth_iters": 26, "rgb_iters": 3, "n_out": 85565},
+    ],
+    "gp_accuracy":
+        {"steps": 150, "initial_mean_err_m": 0.01224, "final_mean_err_m":
+        0.80451, "mean_likelihood": 1.1246, "icp": {"iters": 13,
+        "final_mean_err_m": 0.05606, "rms_plane_residual_m": 0.04626,
+        "n_matched": 1175}},
+    "tum_accuracy": [
+        [{"pair": [0, 1], "steps": 18, "trans_err_m": 0.01577, "rot_err":
+        0.00206, "gt_trans_m": 0.02291}, {"pair": [1, 2], "steps": 11,
+        "trans_err_m": 0.0161, "rot_err": 0.00512, "gt_trans_m": 0.02291},
+        {"pair": [2, 3], "steps": 14, "trans_err_m": 0.01429, "rot_err":
+        0.00165, "gt_trans_m": 0.02291}, {"mean_trans_err_m": 0.01539,
+        "mean_rot_err": 0.00294, "n_pairs": 3}],
+        [{"pair": [0, 1], "steps": 31, "trans_err_m": 0.01156, "rot_err":
+        0.00256, "gt_trans_m": 0.02291}, {"pair": [1, 2], "steps": 25,
+        "trans_err_m": 0.00743, "rot_err": 0.00148, "gt_trans_m": 0.02291},
+        {"pair": [2, 3], "steps": 16, "trans_err_m": 0.01322, "rot_err":
+        0.00201, "gt_trans_m": 0.02291}, {"mean_trans_err_m": 0.01074,
+        "mean_rot_err": 0.00202, "n_pairs": 3}],
+        [{"pair": [0, 1], "steps": 12, "trans_err_m": 0.02257, "rot_err":
+        0.00302, "gt_trans_m": 0.02291}, {"pair": [1, 2], "steps": 22,
+        "trans_err_m": 0.01741, "rot_err": 0.00475, "gt_trans_m": 0.02291},
+        {"pair": [2, 3], "steps": 18, "trans_err_m": 0.01362, "rot_err":
+        0.00373, "gt_trans_m": 0.02291}, {"mean_trans_err_m": 0.01787,
+        "mean_rot_err": 0.00383, "n_pairs": 3}],
+        [{"pair": [0, 1], "steps": 25, "trans_err_m": 0.0093, "rot_err":
+        0.00158, "gt_trans_m": 0.02291}, {"pair": [1, 2], "steps": 11,
+        "trans_err_m": 0.01803, "rot_err": 0.00216, "gt_trans_m": 0.02291},
+        {"pair": [2, 3], "steps": 16, "trans_err_m": 0.01307, "rot_err":
+        0.0021, "gt_trans_m": 0.02291}, {"mean_trans_err_m": 0.01347,
+        "mean_rot_err": 0.00195, "n_pairs": 3}],
+    ],
+    "calibrate_map":
+        {"sigmaf_sq": 1.124949488074475, "l_sq": 83.67677182593619, "s20":
+        0.004498032499976906, "logpost": 2431.725830078125},
+    "calibrate_hmc": [
+        {"sigmaf_sq": 16.55764389038086, "l_sq": 0.17071853578090668, "s20":
+        1.0520052740048413e-07, "accept": 0.7862343192100525},
+        {"sigmaf_sq": 16.643423080444336, "l_sq": 0.17057949304580688, "s20":
+        8.071341426330036e-07, "accept": 0.7852756977081299},
+        {"sigmaf_sq": 16.583980560302734, "l_sq": 0.17068153619766235, "s20":
+        8.110537130789908e-09, "accept": 0.7876706719398499},
+        {"sigmaf_sq": 8.250631332397461, "l_sq": 0.08880830556154251, "s20":
+        0.0008429397130385041, "accept": 0.7829138040542603},
+        {"sigmaf_sq": 0.01769631914794445, "l_sq": 0.008933565579354763, "s20":
+        0.0016718169208616018, "accept": 0.7762495279312134},
+        {"sigmaf_sq": 8.29494571685791, "l_sq": 0.08913359045982361, "s20":
+        0.0008378508500754833, "accept": 0.7852195501327515},
+        {"sigmaf_sq": 8.300442695617676, "l_sq": 0.09017415344715118, "s20":
+        0.0008380897925235331, "accept": 0.8009746074676514},
+        {"sigmaf_sq": 0.017836427316069603, "l_sq": 0.008889401331543922,
+        "s20": 0.0016629148740321398, "accept": 0.7740033864974976},
+        {"sigmaf_sq": 0.017682697623968124, "l_sq": 0.008854812011122704,
+        "s20": 0.0016725283348932862, "accept": 0.7976343631744385},
+        {"sigmaf_sq": 16.62087631225586, "l_sq": 0.16949938237667084, "s20":
+        1.2310319164043904e-07, "accept": 0.7881980538368225},
+        {"sigmaf_sq": 8.208510398864746, "l_sq": 0.0888931155204773, "s20":
+        0.000844001944642514, "accept": 0.7890934944152832},
+        {"sigmaf_sq": 8.351917266845703, "l_sq": 0.08923892676830292, "s20":
+        0.0008421987295150757, "accept": 0.7901785969734192},
+    ],
+    "gp_mapping": {
+        "scans": [
+            {"diverged": False, "reg_steps": 0, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 965},
+            {"diverged": False, "reg_steps": 11, "bank_dropped": 24,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 971},
+            {"diverged": False, "reg_steps": 11, "bank_dropped": 15,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 972},
+            {"diverged": False, "reg_steps": 11, "bank_dropped": 2,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 973},
+            {"diverged": False, "reg_steps": 11, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 975},
+        ],
+        "written": [
+            4725,
+            4950,
+        ],
+    },
+    "tum_mapping_seeds": {
+        0: [
+            {"diverged": False, "reg_steps": 0, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 766},
+            {"diverged": False, "reg_steps": 18, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 776},
+            {"diverged": False, "reg_steps": 23, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 785},
+            {"diverged": False, "reg_steps": 19, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 813},
+        ],
+        1: [
+            {"diverged": False, "reg_steps": 0, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 755},
+            {"diverged": False, "reg_steps": 17, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 766},
+            {"diverged": False, "reg_steps": 19, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 781},
+            {"diverged": False, "reg_steps": 22, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 791},
+        ],
+        2: [
+            {"diverged": False, "reg_steps": 0, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 764},
+            {"diverged": False, "reg_steps": 46, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 772},
+            {"diverged": False, "reg_steps": 21, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 775},
+            {"diverged": False, "reg_steps": 12, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 798},
+        ],
+        3: [
+            {"diverged": False, "reg_steps": 0, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 758},
+            {"diverged": False, "reg_steps": 19, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 769},
+            {"diverged": False, "reg_steps": 19, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 785},
+            {"diverged": False, "reg_steps": 18, "bank_dropped": 0,
+            "patch_overflow": 0, "pend_dropped": 0, "n_patches": 811},
+        ],
+    },
+}
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -1778,6 +1933,286 @@ def map_dtype_check(ccfg, dev, kind, card):
               f"{r['arbitrated']}")
 
 
+def cli_config(res, sz):
+    """The command line's configuration at its defaults and res / sz
+    (cli._gp_config)."""
+    import argparse
+
+    from gp_compressor_tpu_torch import cli
+    return cli._gp_config(argparse.Namespace(
+        res=res, sz=sz, max_patches=4096, max_ppp=256, capacity=100,
+        eps_tol=1e-6, dict_size=200, words_max=10, rgb_dict_size=600,
+        rgb_words_max=20))
+
+
+def near_jax(v, vals, floor=0.0, rel=0.0) -> bool:
+    """v within JAX's range over its keys (vals), widened on each side by
+    the larger of the range's own width, `floor` and `rel` of that end:
+    where a value varies with the draws, a run of the port is one more
+    draw, and JAX's spread over its keys says how far one may land."""
+    lo, hi = min(vals), max(vals)
+    w = hi - lo
+    return (lo - max(w, floor, rel * abs(lo)) <= v
+            <= hi + max(w, floor, rel * abs(hi)))
+
+
+def cli_phase(dev, kind, card):
+    """Phase 12: the six subcommands of the command line on the card,
+    through cli.main as `python -m gp_compressor_tpu_torch.cli` runs them,
+    held to the JAX command line's numbers (CLI_JAX). Returns the
+    kernel's launch statistics at gp-compress's banks, per D."""
+    import ast
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+
+    from gp_compressor_tpu_torch import cli
+    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+    from gp_compressor_tpu_torch.io import artifact, checkpoint, native, pcd
+    from gp_compressor_tpu_torch.io import tum
+    from gp_compressor_tpu_torch.models import sparse_gp
+    from gp_compressor_tpu_torch.utils import synthetic
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = lambda name: os.path.join(work, name)
+    walls = {}
+
+    def run(tag, argv, show=True):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        for ln in lines if show else lines[-2:]:
+            say(f"[12] {tag}: {ln}")
+        say(f"[12] {tag}: wall {walls[tag]:.3f} s on {kind} ({card})")
+        return lines
+
+    def field(lines, prefix):
+        line = next(ln for ln in lines if ln.startswith(prefix))
+        return float(line.split(":")[1].strip().rstrip("s"))
+
+    # ---- gp-compress at the defaults on the cloud as a binary PCD
+    pts_np, cols_np = synthetic.room_cloud(n=N_POINTS, seed=0)
+    cloud = path("room300k.pcd")
+    native.write_pcd(cloud, pts_np, cols_np)
+    a, b = native.read_pcd(cloud), pcd.read(cloud)
+    check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+          and np.array_equal(a[0], pts_np),
+          "[12] the native and NumPy PCD readers differ")
+    out_pcd, ckpt = path("gp.pcd"), path("gp.npz")
+    sogp_train.LAUNCHES = 0
+    lines = run("gp-compress", ["gp-compress", "--cloud", cloud, "--out",
+                                out_pcd, "--checkpoint", ckpt])
+    launches = sogp_train.LAUNCHES
+    check(launches == 2, f"[12] gp-compress launched the kernel {launches} "
+                         "times, expected 2")
+    got = {f: field(lines, p) for f, p in (
+        ("n_points", "Size of original"), ("n_patches", "Number of"),
+        ("mean_added", "Mean added"), ("max_added", "Max added"),
+        ("rms", "RMS error"), ("n_out", "Size of transformed"))}
+    jax_runs = CLI_JAX["gp_compress"]
+    for f in ("n_points", "n_patches"):
+        check(got[f] == jax_runs[0][f], f"[12] gp-compress {f} {got[f]} != "
+                                        f"JAX's {jax_runs[0][f]}")
+    # ~98% of the depth patches end astray and sanitize empties them, in
+    # JAX and in the port (ROADMAP Queue 3): the survivors' statistics
+    # vary with the bank order
+    for f, floor, rel in (("mean_added", 0.0, 0.0), ("max_added", 2.0, 0.0),
+                          ("rms", 0.0, 0.05)):
+        vals = [r[f] for r in jax_runs]
+        check(near_jax(got[f], vals, floor, rel),
+              f"[12] gp-compress {f} {got[f]} too far from JAX's {vals}")
+    # the patches that emit points, a rare outcome (~1.4%) counted over
+    # 1,675 patches: within 3 Poisson standard deviations of JAX's mean
+    G = 20 * 20
+    m = sum(r["n_out"] for r in jax_runs) / len(jax_runs) / G
+    check(abs(got["n_out"] / G - m) <= 3 * math.sqrt(m) + 1,
+          f"[12] gp-compress emits {got['n_out'] / G} patches, JAX "
+          f"{[r['n_out'] / G for r in jax_runs]}")
+    gcfg = cli_config(0.15, 20)
+    pts, cols = (torch.from_numpy(x).to(dev) for x in b)
+    valid = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+    like = compressor.compress(pts, cols, valid, gcfg,
+                               generator=torch.Generator(device=dev))
+    loaded = checkpoint.load(ckpt, like, strict=True)
+    check(checkpoint.load_meta(ckpt) == {"kind": "gp_compressed"},
+          "[12] checkpoint meta")
+    world, colors, ok, *_ = compressor.decompress(loaded, gcfg)
+    again = path("gp_again.pcd")
+    native.write_pcd(again, world[ok].cpu().numpy(), colors[ok].cpu().numpy())
+    with open(again, "rb") as f1, open(out_pcd, "rb") as f2:
+        check(f1.read() == f2.read(), "[12] the checkpoint decompresses to "
+                                      "other points than --out holds")
+
+    # the kernel at the command line's banks (the checkpoint's: the CLI's
+    # own) against its plain version, the plain version in float64 as
+    # referee
+    batch = loaded.patch
+    dkp, ckp = compressor.default_params(gcfg, dev)
+    site = {}
+    for g, kp, Y in ((gcfg.depth_gp, dkp, batch.y),
+                     (gcfg.rgb_gp, ckp, batch.rgb)):
+        init = sparse_gp.init_batch(g, batch.mask.shape[0], device=dev)
+        res, stats = kernel_at_site(kp, g, init, batch.X, Y, batch.mask,
+                                    None, None, dev, rule="arbitrated")
+        site[g.dout] = stats
+        say(f"[12] kernel at the gp-compress banks D={g.dout} on {kind} "
+            f"({card}): {json.dumps(res)}; {json.dumps(stats)}")
+
+    # ---- compress -> decompress (the K-SVD artifact) at the defaults
+    name = path("ksvd")
+    sogp_train.LAUNCHES = 0
+    lines = run("compress", ["compress", "--name", name], show=False)
+    check(sogp_train.LAUNCHES == 0, "[12] compress launched the training "
+                                    "kernel")
+    iters = [int(ln.split()[2].rstrip(":")) for ln in lines
+             if ln.startswith("ksvd iter")]
+    split = iters.index(1, 1)           # each ksvd call counts from 1
+    got = {"rms": field(lines, "RMS error"), "depth_iters": iters[split - 1],
+           "rgb_iters": iters[-1]}
+    say(f"[12] compress: {json.dumps(got)}")
+    jax_runs = CLI_JAX["compress"]
+    # phase 10's margins (RMS 5%, sweeps 2), or JAX's own spread over its
+    # keys where wider (without atom blocks, the stop sweep varies by ~10)
+    for f, floor, rel in (("rms", 0.0, 0.05), ("depth_iters", 2, 0.0),
+                          ("rgb_iters", 2, 0.0)):
+        vals = [r[f] for r in jax_runs]
+        check(near_jax(got[f], vals, floor, rel),
+              f"[12] compress {f} {got[f]} too far from JAX's {vals}")
+    art = artifact.read(name)
+    check(art.means.shape[0] > 0 and art.sz == 20, "[12] artifact read back")
+    dec = path("ksvd.pcd")
+    lines = run("decompress", ["decompress", "--name", name, "--out", dec])
+    # every occupied raster cell: the raster's claims agree with JAX's to
+    # a few points in float32 (phase 3's 0.1% on banked points)
+    n_out = int(field(lines, "Size of transformed"))
+    check(abs(n_out - jax_runs[0]["n_out"]) <= 1e-3 * jax_runs[0]["n_out"],
+          f"[12] decompress emits {n_out} points, JAX {jax_runs[0]['n_out']}")
+    check(native.read_pcd(dec)[0].shape == (n_out, 3),
+          "[12] the decompressed .pcd")
+
+    # ---- gp-accuracy: the synthetic pair with ICP, then the TUM fixture
+    sogp_train.LAUNCHES = 0
+    got = json.loads(run("gp-accuracy", ["gp-accuracy", "--baseline",
+                                         "icp"])[-1])
+    check(sogp_train.LAUNCHES == 2, "[12] gp-accuracy: kernel launches")
+    ja = CLI_JAX["gp_accuracy"]
+    check(got["initial_mean_err_m"] == ja["initial_mean_err_m"],
+          f"[12] gp-accuracy's injected error {got['initial_mean_err_m']} != "
+          f"JAX's {ja['initial_mean_err_m']}")
+    # one pair of phase 11's protocol, whose 20 pairs phase 11 holds to
+    # JAX's as a sample: here each final error lies within the span of
+    # JAX's 20 (+10%), and the GP run within its step budget
+    check(1 <= got["steps"] <= 150, f"[12] gp-accuracy steps {got['steps']}")
+    for m, v in (("gp", got["final_mean_err_m"]),
+                 ("icp", got["icp"]["final_mean_err_m"])):
+        check(math.isfinite(v) and v <= 1.1 * max(ACC_JAX[m]),
+              f"[12] gp-accuracy {m} final error {v} beyond JAX's 20 pairs")
+    fixture, _ = tum.make_fixture(path("tum"), n_frames=4)
+    lines = run("gp-accuracy --dataset", [
+        "gp-accuracy", "--dataset", fixture, "--frame-stride", "1",
+        "--n-pairs", "3"])
+    pairs = [json.loads(ln) for ln in lines]
+    jt = CLI_JAX["tum_accuracy"]
+    check(len(pairs) == len(jt[0]) == 4, "[12] TUM pairs")
+    for i, p in enumerate(pairs[:3]):
+        ref = [r[i] for r in jt]
+        check(p["pair"] == ref[0]["pair"]
+              and p["gt_trans_m"] == ref[0]["gt_trans_m"],
+              f"[12] TUM pair {p} against JAX's {ref[0]}")
+        for f, floor in (("trans_err_m", 5e-3), ("rot_err", 2e-3)):
+            vals = [r[f] for r in ref]
+            check(near_jax(p[f], vals, floor),
+                  f"[12] TUM pair {i} {f} {p[f]} too far from JAX's {vals}")
+
+    # ---- calibrate: MAP and HMC, in float32 as JAX's command line
+    got = json.loads(run("calibrate --map", ["calibrate", "--map"])[-1])
+    jm = CLI_JAX["calibrate_map"]
+    for f in ("sigmaf_sq", "l_sq", "s20"):
+        check(math.isfinite(got[f]) and abs(math.log(got[f] / jm[f])) <= 0.1,
+              f"[12] calibrate --map {f} {got[f]} not within 0.1 of JAX's "
+              f"{jm[f]} in log space")
+    # float32 HMC from the reference constants puts each of JAX's chains
+    # in one of two modes (sigma_f^2 ~16.6 with s20 -> 0, or the cm-scale
+    # mode), so the 2-chain means spread over both and their mixture
+    # across JAX's 12 keys (ROADMAP Queue 3): each value within that
+    # spread, or within phase 9's 0.3 in log space of one of the runs
+    got = json.loads(run("calibrate", ["calibrate"])[-1])
+    vals = {f: [r[f] for r in CLI_JAX["calibrate_hmc"]]
+            for f in ("sigmaf_sq", "l_sq", "s20")}
+    for f, v in vals.items():
+        check(math.isfinite(got[f]) and (min(v) <= got[f] <= max(v) or min(
+            abs(math.log(got[f] / a)) for a in v) <= 0.3),
+            f"[12] calibrate (HMC) {f} {got[f]} not within 0.3 of JAX's "
+            f"{v} in log space")
+
+    # ---- gp-mapping: 5 synthetic scans with --out
+    def scans(lines):
+        """(the scans' printed info dicts, the map points each --out
+        write reports)."""
+        return ([ast.literal_eval(ln.partition(": ")[2]) for ln in lines
+                 if ln.startswith("scan")],
+                [int(ln.split("(")[1].split()[0]) for ln in lines
+                 if ln.startswith("wrote")])
+
+    got, written = scans(run("gp-mapping", ["gp-mapping", "--out",
+                                            path("map.pcd")]))
+    ref = CLI_JAX["gp_mapping"]
+    check(len(got) == len(ref["scans"]) and len(written) == len(
+        ref["written"]), "[12] gp-mapping: scans or writes missing")
+    for a, b in zip(ref["scans"], got):
+        check(list(b) == list(a) and b["diverged"] == a["diverged"]
+              and abs(b.get("n_patches", 0) - a.get("n_patches", 0))
+              <= 0.01 * a.get("n_patches", 0),
+              f"[12] gp-mapping: {b} against JAX's {a}")
+    # the map's patches that emit points are the rare survivors of
+    # float32 training, as in gp-compress (3 Poisson deviations)
+    for na, nb in zip(ref["written"], written):
+        check(abs(na / 225 - nb / 225) <= 3 * math.sqrt(na / 225) + 1,
+              f"[12] gp-mapping wrote {nb} map points, JAX {na}")
+
+    # ---- gp-mapping --dataset on the fixture of each seed. Registration
+    # against a float32 map at the reference constants takes from ~12 to
+    # past the 60-step cap from scan to scan, by either trainer (ROADMAP
+    # Queue 3): the steps of the scans after the first are held to JAX's
+    # as a sample (phase 11's rank-sum rule), the first scan's insert
+    # exactly
+    steps = {"port": [], "jax": []}
+    drops = {"port": 0, "jax": 0}
+    for seed, ref in sorted(CLI_JAX["tum_mapping_seeds"].items()):
+        fx, _ = tum.make_fixture(path(f"tum_seed{seed}"), n_frames=4,
+                                 seed=seed)
+        got, _ = scans(run(f"gp-mapping --dataset (fixture seed {seed})",
+                           ["gp-mapping", "--dataset", fx]))
+        check(len(got) == len(ref) and got[0] == ref[0],
+              f"[12] gp-mapping --dataset, seed {seed}: {got} against "
+              f"JAX's {ref}")
+        for who, infos in (("port", got), ("jax", ref)):
+            steps[who] += [i["reg_steps"] for i in infos[1:]]
+            drops[who] += sum(i["diverged"] for i in infos[1:])
+    p_val = rank_sum_p(steps["port"], steps["jax"])
+    say(f"[12] gp-mapping --dataset: registration steps port "
+        f"{steps['port']} (dropped {drops['port']}), JAX {steps['jax']} "
+        f"(dropped {drops['jax']}); rank-sum p {p_val:.4f}")
+    check(p_val >= 0.01, f"[12] gp-mapping --dataset: the port's "
+                         f"registration steps differ from JAX's (p {p_val})")
+    say(f"[12] walls (s) on {kind} ({card}): {json.dumps(walls)}; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return site
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2022,6 +2457,9 @@ def main() -> int:
     # ---- 11. ICP, the accuracy pairs, and the MAP calibration's dtype
     icp_accuracy_phase(pts, valid, ccfg, comp, dev, kind, card)
 
+    # ---- 12. the command line
+    site = cli_phase(dev, kind, card)
+
     # one D=1 and one D=3 launch per round trip: ms and plain_ms are their sum
     kernels = [{
         "name": "sogp_train",
@@ -2035,6 +2473,14 @@ def main() -> int:
         "bound_ms": timing[1][2]["bound_ms"] + timing[3][2]["bound_ms"],
         "bound_by": timing[1][2]["bound_by"],
         "library_ms": None,     # no PyTorch call runs the online SOGP loop
+        # the command line's call site (gp-compress at its defaults: 4096
+        # x 256 banks, 101 slots): its launches, ms per D=1 + D=3 launch
+        # pair and bound
+        "cli_launches": 2,
+        "cli_ms": sum(sum(site[d]["kernel_ms"]) / 2 for d in (1, 3)),
+        "cli_plain_ms": sum(sum(site[d]["plain_ms"]) / 2 for d in (1, 3)),
+        "cli_bound_ms": sum(site[d]["bound_us"] for d in (1, 3)) / 1e3,
+        "cli_bound_by": site[1]["bound_by"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -142,7 +142,7 @@ def bank_rank(loc_claim: torch.Tensor, order: str, claim=None, claimed=None,
     raise ValueError(f"unknown bank_order {order!r}")
 
 
-def draw_shuffle_bits(B: int, P: int, device=None,
+def draw_shuffle_bits(B: int, P: int, device="cuda",
                       generator: torch.Generator = None) -> torch.Tensor:
     """[B, P] uniform 32-bit values as int64 in [0, 2^32), the random
     source of the `shuffle` bank order (int64 because sorting uint32 is
@@ -498,7 +498,7 @@ def raster_reproject(batch: RasterBatch, S_rec: torch.Tensor,
 
 
 def prediction_grid(cfg: PatchConfig, dtype=torch.float32,
-                    device=None) -> torch.Tensor:
+                    device="cuda") -> torch.Tensor:
     """The sz*sz local query grid of load_compressed: row m has
     x = m % sz, y = m // sz and (u, v) = res*((x, y) + 0.5)/sz - res/2.
     The division by sz is a multiplication by its reciprocal, as XLA folds

@@ -91,6 +91,25 @@ def jacobi_eigh_batch(M: torch.Tensor, sweeps: int = 5):
     return w, V
 
 
+def rotation_from_moment(M: torch.Tensor, npoints,
+                         min_points: int = 4) -> torch.Tensor:
+    """One patch's frame from its [4, 4] homogeneous second-moment matrix
+    (the sum over its sphere points of [x,y,z,1][x,y,z,1]^T) and its point
+    count: the plane is the eigenvector of the smallest eigenvalue
+    (`torch.linalg.eigh`, as the JAX form takes `jnp.linalg.eigh`). Below
+    `min_points`, or for a degenerate normal, the identity
+    (src/gp_compressor.cpp:31-34)."""
+    _, V = torch.linalg.eigh(M)
+    normal = V[:3, 0]                        # eigenvalues ascending
+    norm = torch.linalg.norm(normal)
+    normal = normal / torch.where(norm > 0, norm, 1.0)
+    R = frame_from_normal(normal)
+    eye = torch.eye(3, dtype=M.dtype, device=M.device)
+    bad = (torch.as_tensor(npoints, device=M.device) < min_points) \
+        | (norm <= 0)
+    return torch.where(bad, eye, R)
+
+
 def rotation_from_moment_batch(M: torch.Tensor, npoints: torch.Tensor,
                                min_points: int = 4) -> torch.Tensor:
     """[B, 4, 4] moments -> [B, 3, 3] frames. Below `min_points` support

@@ -46,7 +46,7 @@ def draw_steps(n: int, P: int, dtype, device,
 
 
 def init_particles(cfg: SMCConfig, generator: Optional[torch.Generator] = None,
-                   dtype=torch.float32, device=None,
+                   dtype=torch.float32, device="cuda",
                    normals: Optional[torch.Tensor] = None) -> ParticleState:
     """P particles around the identity: translation std pose_proposal_std_t,
     rotation std pose_proposal_std_r; particle 0 is the identity."""

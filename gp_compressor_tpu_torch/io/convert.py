@@ -3,9 +3,10 @@
 Each function takes a dict of numpy arrays keyed by the JAX NamedTuple's
 field names (`nt._asdict()` with `np.asarray` applied to each leaf, nested
 NamedTuples as nested dicts) and returns the port's NamedTuple on
-`device`. Config dataclasses convert field by field from
-`dataclasses.asdict` of the JAX config, with numpy dtypes mapped to torch
-dtypes. Nothing here imports the JAX package: the dicts are plain data.
+`device` (the card unless the caller names another). Config dataclasses
+convert field by field from `dataclasses.asdict` of the JAX config, with
+numpy dtypes mapped to torch dtypes. Nothing here imports the JAX
+package: the dicts are plain data.
 """
 
 from __future__ import annotations
@@ -37,32 +38,32 @@ def _tuple(cls, d, device):
     return cls(**{f: _t(d.get(f), device) for f in cls._fields})
 
 
-def state_from_numpy(d, device=None) -> SOGPState:
+def state_from_numpy(d, device="cuda") -> SOGPState:
     return _tuple(SOGPState, d, device)
 
 
-def grid_from_numpy(d, device=None) -> VoxelGrid:
+def grid_from_numpy(d, device="cuda") -> VoxelGrid:
     return _tuple(VoxelGrid, d, device)
 
 
-def patch_batch_from_numpy(d, device=None) -> PatchBatch:
+def patch_batch_from_numpy(d, device="cuda") -> PatchBatch:
     fields = {f: _t(d[f], device) for f in PatchBatch._fields if f != "grid"}
     return PatchBatch(grid=grid_from_numpy(d["grid"], device), **fields)
 
 
-def compressed_from_numpy(d, device=None) -> CompressedCloud:
+def compressed_from_numpy(d, device="cuda") -> CompressedCloud:
     return CompressedCloud(patch=patch_batch_from_numpy(d["patch"], device),
                            depth_gp=state_from_numpy(d["depth_gp"], device),
                            rgb_gp=state_from_numpy(d["rgb_gp"], device))
 
 
-def ksvd_result_from_numpy(d, device=None) -> KSVDResult:
+def ksvd_result_from_numpy(d, device="cuda") -> KSVDResult:
     return KSVDResult(D=_t(d["D"], device),
                       code=_tuple(OMPCode, d["code"], device),
                       error=_t(d["error"], device), iters=int(d["iters"]))
 
 
-def ksvd_compressed_from_numpy(d, device=None) -> KSVDCompressed:
+def ksvd_compressed_from_numpy(d, device="cuda") -> KSVDCompressed:
     """KSVDCompressed from the JAX KSVDCompressed's fields (raster, depth
     and rgb as nested dicts, cfg as `dataclasses.asdict` of the JAX
     CompressorConfig)."""
@@ -98,23 +99,23 @@ def smc_config_from_dict(d) -> config_mod.SMCConfig:
     return _config(config_mod.SMCConfig, d)
 
 
-def particle_state_from_numpy(d, device=None) -> ParticleState:
+def particle_state_from_numpy(d, device="cuda") -> ParticleState:
     return _tuple(ParticleState, d, device)
 
 
-def vi_result_from_numpy(d, device=None) -> VIResult:
+def vi_result_from_numpy(d, device="cuda") -> VIResult:
     return _tuple(VIResult, d, device)
 
 
-def registration_state_from_numpy(d, device=None) -> RegistrationState:
+def registration_state_from_numpy(d, device="cuda") -> RegistrationState:
     return _tuple(RegistrationState, d, device)
 
 
-def claim_tables_from_numpy(d, device=None) -> ClaimTables:
+def claim_tables_from_numpy(d, device="cuda") -> ClaimTables:
     return _tuple(ClaimTables, d, device)
 
 
-def map_state_from_numpy(d, device=None) -> MapState:
+def map_state_from_numpy(d, device="cuda") -> MapState:
     """MapState from the JAX MapState's fields (depth_gp, rgb_gp and
     tables as nested dicts)."""
     nested = {"depth_gp": state_from_numpy, "rgb_gp": state_from_numpy,

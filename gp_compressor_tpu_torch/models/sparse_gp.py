@@ -7,6 +7,12 @@ patch and `vmap`s it; here every function takes the patch axis B as the
 leading dimension of every state tensor, and the point loop (`lax.scan`
 there) is a Python loop.
 
+The single-patch API of the JAX module (`init`, `add_points`, `reset`,
+`predict_confidence`, `log_likelihood`, `likelihood`, `likelihood_dx`)
+takes states without the patch axis and runs through the batched
+functions at B = 1 (`predict` and the likelihoods broadcast over any
+leading axes as they are).
+
 This is the unfused path: each point costs a few dozen small batched
 torch ops over [B, S, S]. It is the plain version of the fused CUDA
 training kernel (`cuda_kernels.sogp_train`) and the reference the kernel
@@ -17,6 +23,7 @@ floor and the sanitize pass.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -49,13 +56,23 @@ class SOGPState(NamedTuple):
         return self.C.shape[-1]
 
 
-def init_batch(cfg: GPConfig, n: int, device=None) -> SOGPState:
-    """A bank of n empty patch GPs."""
+def init_batch(cfg: GPConfig, n: int, device="cuda") -> SOGPState:
+    """A bank of n empty patch GPs on `device`."""
     z = lambda *s: torch.zeros((n,) + s, dtype=cfg.dtype, device=device)
     return SOGPState(bv=z(cfg.slots, cfg.dim), alpha=z(cfg.slots, cfg.dout),
                      C=z(cfg.slots, cfg.slots), Q=z(cfg.slots, cfg.slots),
                      active=torch.zeros((n, cfg.slots), dtype=torch.bool,
                                         device=device))
+
+
+def init(cfg: GPConfig, device="cuda") -> SOGPState:
+    """One empty patch GP (no patch axis) on `device`."""
+    return SOGPState(*[a[0] for a in init_batch(cfg, 1, device)])
+
+
+def reset(state: SOGPState) -> SOGPState:
+    """src/sparse_gp.hpp:573-582."""
+    return SOGPState(*[torch.zeros_like(a) for a in state])
 
 
 def size(state: SOGPState) -> torch.Tensor:
@@ -225,13 +242,18 @@ def add_points_batch(kp: RBFParams, noise: GaussianNoise, cfg: GPConfig,
     Y [B, n, dout], mask [B, n].
 
     eps_tol: None, a scalar (0-dim tensor or float), or [B, n] per-point
-    thresholds. keys: the in-path shuffle of the JAX package is not ported
-    (the banks already carry their insertion order), so only None is taken.
-    geom, tally: see add_point."""
-    if keys is not None:
-        raise NotImplementedError("in-path shuffle is not ported; pass "
-                                  "banks in their insertion order")
+    thresholds. keys: None (bank order), or [B, n] per-patch permutations
+    of the rows, the insertion order (JAX draws `permutation(keys[b], n)`
+    for patch b); per-point thresholds follow their rows. geom, tally: see
+    add_point."""
     per_point = isinstance(eps_tol, torch.Tensor) and eps_tol.ndim == 2
+    if keys is not None:
+        p = keys.long().to(X.device)
+        take = lambda a: torch.take_along_dim(
+            a, p.reshape(p.shape + (1,) * (a.ndim - 2)), dim=1)
+        X, Y, mask = take(X), take(Y), take(mask)
+        if per_point:
+            eps_tol = take(eps_tol)
     for p in range(X.shape[1]):
         e = eps_tol[:, p] if per_point else eps_tol
         states = add_point(kp, noise, cfg, states, X[:, p], Y[:, p],
@@ -254,6 +276,67 @@ def predict(kp: RBFParams, s20, state: SOGPState,
 
 # the state, the queries and the result all carry the patch axis already
 predict_batch = predict
+
+
+def add_points(kp: RBFParams, noise, cfg: GPConfig, state: SOGPState,
+               X: torch.Tensor, Y: torch.Tensor,
+               mask: Optional[torch.Tensor] = None,
+               perm: Optional[torch.Tensor] = None,
+               eps_tol=None) -> SOGPState:
+    """Insert one patch's points in order, one update each. X [n, dim],
+    Y [n, dout], mask [n] validity (all valid when None); perm: optional
+    [n] insertion order (the reference shuffles before inserting,
+    src/sparse_gp.hpp:43-56; JAX draws it from a key). eps_tol: None, a
+    scalar, or [n] per-point thresholds (-inf forces a point into the
+    basis, +inf forces a sparse projection)."""
+    n = X.shape[0]
+    if mask is None:
+        mask = torch.ones(n, dtype=torch.bool, device=X.device)
+    if isinstance(eps_tol, torch.Tensor) and eps_tol.ndim == 1:
+        eps_tol = eps_tol[None]
+    one = SOGPState(*[a[None] for a in state])
+    out = add_points_batch(kp, noise, cfg, one, X[None], Y[None], mask[None],
+                           keys=None if perm is None else perm[None],
+                           eps_tol=eps_tol)
+    return SOGPState(*[a[0] for a in out])
+
+
+def predict_confidence(kp: RBFParams, s20, state: SOGPState, Xstar):
+    """The reference's `conf=true` branch: (mean, 100 (1 - var / (k** +
+    s20))) (src/sparse_gp.hpp:339-345)."""
+    mean, var = predict(kp, s20, state, Xstar)
+    return mean, 100.0 * (1.0 - var / (kernels.kdiag(kp, Xstar) + s20))
+
+
+def log_likelihood(kp: RBFParams, s20, state: SOGPState, X: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+    """Per-point predictive log density ln N(y; mu(x), var(x)), summed over
+    the outputs (src/sparse_gp.hpp:358-387,398-405). X [..., m, dim],
+    y [..., m, dout] -> [..., m]."""
+    mean, var = predict(kp, s20, state, X)
+    v = var[..., None]
+    return torch.sum(-0.5 * torch.log(2.0 * math.pi * v)
+                     - 0.5 * (y - mean) ** 2 / v, dim=-1)
+
+
+def likelihood(kp: RBFParams, s20, state: SOGPState, X, y) -> torch.Tensor:
+    """Predictive density (not log), src/sparse_gp.hpp:409-427."""
+    return torch.exp(log_likelihood(kp, s20, state, X, y))
+
+
+def likelihood_dx(kp: RBFParams, s20, state: SOGPState, X: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+    """Gradient of the predictive density of one patch's state w.r.t.
+    (y, x) at each of the m points: [m, 1 + dim], column 0 d/dy (summed
+    over the output channels), columns 1..dim d/dx (sparse_gp::
+    likelihood_dx, src/sparse_gp.hpp:430-508), by `torch.func.grad`."""
+    from torch.func import grad, vmap
+
+    def density(x, yv):
+        return torch.exp(log_likelihood(kp, s20, state, x[None], yv[None])[0])
+
+    dy, dx = vmap(grad(density, argnums=(1, 0)))(X, y)
+    return torch.cat([torch.sum(dy, dim=-1, keepdim=True), dx], dim=-1)
 
 
 def sanitize_batch(states: SOGPState, kp: Optional[RBFParams] = None,

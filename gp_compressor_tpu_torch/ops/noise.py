@@ -62,3 +62,10 @@ class ProbitNoise(NamedTuple):
         z = torch.sum(y * m, dim=-1) / sigma
         ratio = self._ratio(z)
         return -ratio * (z + ratio) / sigma2
+
+
+def gaussian_log_pdf(y, mu, var):
+    """ln N(y; mu, var) elementwise — the likelihood paths' density and
+    the autodiff ground truth for the closed forms above."""
+    return -0.5 * math.log(2.0 * math.pi) - 0.5 * torch.log(var) \
+        - 0.5 * (y - mu) ** 2 / var

@@ -78,7 +78,7 @@ CAL_SIGMAF_SQ, CAL_L_SQ, CAL_S20 = 1.0375e-3, 1.3576e-3, 4.3595e-4
 CAL_EPS = 2.0 * CAL_SIGMAF_SQ / 100.0
 
 
-def calibrated_params(device=None) -> RBFParams:
+def calibrated_params(device="cuda") -> RBFParams:
     t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
     return RBFParams(sigmaf_sq=t(CAL_SIGMAF_SQ), l_sq=t(CAL_L_SQ))
 
@@ -191,7 +191,7 @@ def geometric_probes() -> np.ndarray:
     return r.uniform(-half, half, size=(24, 2)).astype(np.float32)
 
 
-def params(device=None) -> RBFParams:
+def params(device="cuda") -> RBFParams:
     t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
     return RBFParams(sigmaf_sq=t(SIGMAF_SQ), l_sq=t(L_SQ))
 

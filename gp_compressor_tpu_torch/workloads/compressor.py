@@ -43,7 +43,7 @@ class CompressedCloud(NamedTuple):
 
 
 def default_params(cfg: CompressorConfig,
-                   device=None) -> Tuple[RBFParams, RBFParams]:
+                   device="cuda") -> Tuple[RBFParams, RBFParams]:
     """The configs' kernel constants as 0-dim tensors of each GP's dtype
     (filled on the device: no host-to-device copy)."""
     def kp(g):
@@ -73,7 +73,7 @@ def _shuffle_source(points, cfg: CompressorConfig, generator, shuffle_bits):
     return torch.Generator(device=points.device).manual_seed(0)
 
 
-def bank_permutations(B: int, P: int, device=None,
+def bank_permutations(B: int, P: int, device="cuda",
                       generator: torch.Generator = None):
     """(depth, rgb) per-patch uniform permutations [B, P] of the banks'
     rows, for training banks that were not shuffled at bank time."""

@@ -704,12 +704,13 @@ def add_cloud(state: MapState, points, colors, valid, cfg: CompressorConfig,
               rcfg: RegistrationConfig = RegistrationConfig(),
               register_scan: bool = True):
     """Host-facing wrapper over add_cloud_fused: the info dict as Python
-    numbers."""
+    numbers, the counters in key order (as JAX's jitted dict returns
+    them, so that a printed info reads the same)."""
     state, diverged, reg_steps, counters = add_cloud_fused(
         state, points, colors, valid, cfg, mcfg, rcfg=rcfg,
         register_scan=register_scan)
     info = {"diverged": diverged, "reg_steps": int(reg_steps)}
-    info.update({k: int(v) for k, v in counters.items()})
+    info.update({k: int(counters[k]) for k in sorted(counters)})
     if not diverged:
         info["n_patches"] = int(state.n_patches)
     return state, info

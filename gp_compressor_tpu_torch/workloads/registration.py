@@ -47,7 +47,7 @@ class RegistrationState(NamedTuple):
     mean_color_likelihood: torch.Tensor
 
 
-def init_state(dtype=torch.float32, device=None) -> RegistrationState:
+def init_state(dtype=torch.float32, device="cuda") -> RegistrationState:
     z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     return RegistrationState(
         R_cloud=torch.eye(3, dtype=dtype, device=device), t_cloud=z(3),
@@ -196,7 +196,7 @@ def build_claim_tables_dense(key_to_leaf, key_by_gid, n_patches, trained,
 
 
 def empty_claim_tables_dense(n_cells: int, B: int, dtype=torch.float32,
-                             device=None) -> ClaimTables:
+                             device="cuda") -> ClaimTables:
     """map_init's persistent tables: no candidates anywhere."""
     i32 = torch.int32
     return ClaimTables(

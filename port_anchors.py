@@ -50,13 +50,16 @@ the 300k-point `room_cloud(seed=0)` at the bench configuration
     points, 384 patches of 64 points), trained in float32 and in float64
     (x64 on): the depth and RGB patches holding points that sanitize
     leaves empty, per seed 0-2.
+  * cli: the command line (`cli.main`) at the arguments of chip_smoke.py's
+    phase 12, see `cli_anchors`: printed counts, errors and calibrated
+    values, at four keys where the command draws from one.
 
     JAX_PLATFORMS=cpu python3 port_anchors.py [section ...]
 
 with sections among headline, calibrated, registration, mapping, bayes,
-nuts_seeds, ksvd, icp, accuracy, accuracy_noise, accuracy_resets (all
-but the last two, which switch x64 on and so each run alone, when none
-is named;
+nuts_seeds, ksvd, icp, accuracy, cli, accuracy_noise, accuracy_resets
+(all but cli and the last two, which switch x64 on and so each run
+alone, when none is named; cli ~40 min;
 registration needs calibrated and headline, icp needs headline). It needs the JAX
 package and a few GiB of host memory, and takes some minutes on the CPU
 (accuracy ~20); the port's machine does not run it.
@@ -480,6 +483,155 @@ def accuracy_resets_anchors(seeds=(0, 1, 2)):
             print(json.dumps({"accuracy_resets": out[-1]}), flush=True)
     return out
 
+CLI_KEYS = (0, 1, 2, 3)
+# calibrate's float32 HMC lands in more than one mode across keys (the
+# posterior mean of 2 chains at s20 -> 0, or between modes): more keys
+CLI_HMC_KEYS = tuple(range(12))
+CLI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "port_anchors_cli")
+
+
+def _cli_lines(argv, key_offset=0):
+    """The printed lines of the JAX command line's main(argv), with
+    jax.random.key(s) drawing key s + key_offset (the CLI's only random
+    source; --seed also picks the synthetic cloud, so the offset varies
+    the draws alone)."""
+    import contextlib
+    import io
+
+    from gp_compressor_tpu import cli
+
+    orig = jax.random.key
+    jax.random.key = lambda s: orig(s + key_offset)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+    finally:
+        jax.random.key = orig
+    return buf.getvalue().splitlines()
+
+
+def _field(lines, prefix):
+    line = next(ln for ln in lines if ln.startswith(prefix))
+    return float(line.split(":")[1].strip().rstrip("s"))
+
+
+def cli_anchors():
+    """The JAX command line at the arguments chip_smoke.py's phase 12
+    gives the port's, float32: gp-compress at its defaults on the
+    300k-point room_cloud(seed=0) as a binary PCD, and compress, at keys
+    CLI_KEYS; gp-accuracy's synthetic pair (seed 0, --baseline icp); the
+    TUM-format fixture (make_fixture, 4 frames) through gp-accuracy
+    (stride 1, 3 pairs) at CLI_KEYS; calibrate --map (the
+    MAP of cmd_calibrate computed here: JAX's command line hands
+    json.dumps numpy float32 values there and raises TypeError) and
+    calibrate (HMC, 150 + 150 steps, 2 chains) at CLI_HMC_KEYS;
+    gp-mapping over 5 synthetic scans (its insert draws nothing from the
+    key) and over the fixture of each seed in CLI_FIXTURE_SEEDS."""
+    from gp_compressor_tpu.io import pcd, tum
+
+    os.makedirs(CLI_DIR, exist_ok=True)
+    out = {}
+    cloud = os.path.join(CLI_DIR, "room300k.pcd")
+    pcd.write(cloud, *synthetic.room_cloud(n=N_POINTS, seed=0))
+    runs = []
+    for k in CLI_KEYS:
+        lines = _cli_lines(["gp-compress", "--cloud", cloud], k)
+        runs.append({f: _field(lines, p) for f, p in (
+            ("n_points", "Size of original"), ("n_patches", "Number of"),
+            ("mean_added", "Mean added"), ("max_added", "Max added"),
+            ("rms", "RMS error"),
+            ("n_out", "Size of transformed"))})
+        print(json.dumps({"gp_compress": runs[-1]}), flush=True)
+    out["gp_compress"] = runs
+
+    runs = []
+    for k in CLI_KEYS:
+        name = os.path.join(CLI_DIR, f"ksvd{k}")
+        lines = _cli_lines(["compress", "--name", name], k)
+        iters = [int(ln.split()[2].rstrip(":")) for ln in lines
+                 if ln.startswith("ksvd iter")]
+        # each ksvd call counts its sweeps from 1: depth, then RGB
+        split = iters.index(1, 1)
+        dec = _cli_lines(["decompress", "--name", name])
+        runs.append({"rms": _field(lines, "RMS error"),
+                     "depth_iters": iters[split - 1],
+                     "rgb_iters": iters[-1],
+                     "n_out": int(_field(dec, "Size of transformed"))})
+        print(json.dumps({"compress": runs[-1]}), flush=True)
+    out["compress"] = runs
+
+    out["gp_accuracy"] = json.loads(_cli_lines(
+        ["gp-accuracy", "--baseline", "icp"])[-1])
+    print(json.dumps({"gp_accuracy": out["gp_accuracy"]}), flush=True)
+
+    fixture, _ = tum.make_fixture(os.path.join(CLI_DIR, "tum"), n_frames=4)
+    out["tum_accuracy"] = [
+        [json.loads(ln) for ln in _cli_lines(
+            ["gp-accuracy", "--dataset", fixture, "--frame-stride", "1",
+             "--n-pairs", "3"], k)] for k in CLI_KEYS]
+    print(json.dumps({"tum_accuracy": out["tum_accuracy"]}), flush=True)
+    out.update(cli_tum_mapping_anchors())
+    out.update(cli_calibrate_mapping_anchors())
+    return out
+
+
+CLI_FIXTURE_SEEDS = (0, 1, 2, 3)
+
+
+def cli_tum_mapping_anchors():
+    """gp-mapping --dataset at its defaults on the TUM-format fixture of
+    each seed in CLI_FIXTURE_SEEDS (make_fixture, 4 frames): the printed
+    line of each scan. Registration against a float32 map at the
+    reference constants varies from scan to scan, so phase 12 holds the
+    port's steps to these as a sample."""
+    from gp_compressor_tpu.io import tum
+
+    out = {}
+    for seed in CLI_FIXTURE_SEEDS:
+        fixture, _ = tum.make_fixture(
+            os.path.join(CLI_DIR, f"tum_seed{seed}"), n_frames=4, seed=seed)
+        out[seed] = _cli_lines(["gp-mapping", "--dataset", fixture])
+        print(json.dumps({"tum_mapping_seed": seed, "lines": out[seed]}),
+              flush=True)
+    return {"tum_mapping_seeds": out}
+
+
+def cli_calibrate_mapping_anchors():
+    """cli_anchors' calibrate (MAP, then HMC at CLI_HMC_KEYS) and
+    synthetic gp-mapping rows."""
+    from gp_compressor_tpu.inference import hmc
+
+    out = {}
+    # calibrate --map: cmd_calibrate's computation at its defaults
+    ccfg = c.CompressorConfig(
+        patch=c.PatchConfig(res=0.3, sz=10, max_patches=4096,
+                            max_points_per_patch=256),
+        depth_gp=c.GPConfig(capacity=100, slots=101, eps_tol=1e-6),
+        rgb_gp=c.rgb_gp_config(slots=101, capacity=100))
+    p, cl = synthetic.room_cloud(n=100_000, seed=0)
+    batch = compressor.project(jnp.asarray(p), jnp.asarray(cl),
+                               jnp.ones(len(p), bool), ccfg)
+    X, y, mask = compressor.calib_subsample(
+        batch, min(32, int(batch.n_leaves)), 64)
+    logpost = hmc.make_patch_logpost(X, y, mask.astype(X.dtype))
+    theta, trace = hmc.map_estimate(
+        logpost, jnp.asarray([np.log(100.0), 0.0, np.log(0.1)]), steps=150)
+    est = np.exp(np.asarray(theta, np.float64))
+    out["calibrate_map"] = {"sigmaf_sq": float(est[0]), "l_sq": float(est[1]),
+                            "s20": float(est[2]),
+                            "logpost": float(trace[-1])}
+    print(json.dumps({"calibrate_map": out["calibrate_map"]}), flush=True)
+    out["calibrate_hmc"] = [json.loads(_cli_lines(["calibrate"], k)[-1])
+                            for k in CLI_HMC_KEYS]
+    print(json.dumps({"calibrate_hmc": out["calibrate_hmc"]}), flush=True)
+
+    out["gp_mapping"] = _cli_lines(["gp-mapping", "--out", os.path.join(
+        CLI_DIR, "map.pcd")])
+    print(json.dumps({"gp_mapping": out["gp_mapping"]}), flush=True)
+    return out
+
 
 def main(sections):
     t_start = time.time()
@@ -499,6 +651,8 @@ def main(sections):
     if "accuracy" in sections:
         out["accuracy"] = accuracy_anchors()
         print(json.dumps({"accuracy": out["accuracy"]}), flush=True)
+    if "cli" in sections:
+        out["cli"] = cli_anchors()
     if sections == {"accuracy_noise"}:
         out["accuracy_noise"] = accuracy_noise_anchors()
     if sections == {"accuracy_resets"}:

@@ -322,8 +322,8 @@ def test_fit_advi_matches_jax():
                       for k in jax.random.split(key, steps)]))
     t = tvi.fit_advi(tlp, T(THETA0[0]), steps=steps, lr=0.05, n_mc=n_mc,
                      eps=eps)
-    ref = convert.vi_result_from_numpy({k: np.asarray(v)
-                                        for k, v in j._asdict().items()})
+    ref = convert.vi_result_from_numpy(
+        {k: np.asarray(v) for k, v in j._asdict().items()}, device="cpu")
     for a, b in zip(t, ref):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL,
                                    rtol=ATOL)

@@ -328,7 +328,7 @@ def _hold(jc, tc, jkp, tkp, js20, ts20):
     jt = np.log([float(jkp.sigmaf_sq), float(jkp.l_sq), float(js20)])
     tt = np.log([float(tkp.sigmaf_sq), float(tkp.l_sq), float(ts20)])
     np.testing.assert_allclose(tt, jt, atol=1e-6)
-    jd = convert.state_from_numpy(_asdict(jc.depth_gp))
+    jd = convert.state_from_numpy(_asdict(jc.depth_gp), device="cpu")
     sogp_regimes.compare("realistic", jd, tc.depth_gp, tc.patch.X,
                          tc.patch.y, tc.patch.mask, kp=tkp, s20=ts20)
     rj = float(jcomp.reconstruction_rmse(jc, _cfg(jcfg), depth_kp=jkp,
@@ -422,7 +422,7 @@ def test_plain_tally_counts_churn():
     X, Y, M = T(X), T(Y), T(M)
     kp = TRBF(torch.tensor(1.04e-3), torch.tensor(1.36e-3))
     kw = dict(s20=4.4e-4, eps_tol=2.0 * 1.04e-3 / 100.0)
-    init = tsg.init_batch(cfg, X.shape[0])
+    init = tsg.init_batch(cfg, X.shape[0], device="cpu")
     tally = torch.zeros((X.shape[0], 5), dtype=torch.int64)
     st = sogp_train.add_points_batch_plain(kp, cfg, init, X, Y, M,
                                            tally=tally, **kw)
@@ -448,7 +448,8 @@ def _port_calibrated():
     cfg, X, Y, M = sogp_regimes.calibrated_case(1)
     X, Y, M = T(X), T(Y), T(M)
     out = sogp_train.add_points_batch_plain(
-        sogp_regimes.calibrated_params(), cfg, tsg.init_batch(cfg, X.shape[0]),
+        sogp_regimes.calibrated_params(device="cpu"), cfg,
+        tsg.init_batch(cfg, X.shape[0], device="cpu"),
         X, Y, M, s20=sogp_regimes.CAL_S20, eps_tol=sogp_regimes.CAL_EPS)
     return out, X, Y, M
 
@@ -470,7 +471,7 @@ def test_calibrated_rule_rejects_faults(fault):
         d["active"][:, ::2] = False
     with pytest.raises(AssertionError):
         sogp_regimes.compare("calibrated", out, tsg.SOGPState(**d), X, Y, M,
-                             kp=sogp_regimes.calibrated_params(),
+                             kp=sogp_regimes.calibrated_params(device="cpu"),
                              s20=sogp_regimes.CAL_S20)
 
 
@@ -512,12 +513,13 @@ def test_calibrated_regime_matches_jax(dout, pallas):
     X, Y, M = T(X), T(Y), T(M)
     tally = torch.zeros((X.shape[0], 5), dtype=torch.int64)
     out = sogp_train.add_points_batch_plain(
-        sogp_regimes.calibrated_params(), cfg, tsg.init_batch(cfg, X.shape[0]),
+        sogp_regimes.calibrated_params(device="cpu"), cfg,
+        tsg.init_batch(cfg, X.shape[0], device="cpu"),
         X, Y, M, s20=sogp_regimes.CAL_S20, eps_tol=sogp_regimes.CAL_EPS,
         tally=tally)
     assert float(out.active.sum(1).double().mean()) > 0.95 * cfg.capacity
     assert float(tally[:, 1].double().mean()) > 5.0
-    ref = convert.state_from_numpy(_jax_calibrated(dout, pallas))
+    ref = convert.state_from_numpy(_jax_calibrated(dout, pallas), device="cpu")
     sogp_regimes.compare("calibrated", ref, out, X, Y, M,
-                         kp=sogp_regimes.calibrated_params(),
+                         kp=sogp_regimes.calibrated_params(device="cpu"),
                          s20=sogp_regimes.CAL_S20)

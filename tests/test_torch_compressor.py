@@ -84,7 +84,7 @@ def test_round_trip_matches_jax():
 def test_decompress_of_jax_state_matches_jax():
     """Both packages decompress exactly the same trained state."""
     (jc, jo), _ = _runs()
-    comp = convert.compressed_from_numpy(_asdict(jc))
+    comp = convert.compressed_from_numpy(_asdict(jc), device="cpu")
     to = tcomp.decompress(comp, _cfg(tcfg))
     np.testing.assert_allclose(to[0].numpy(), np.asarray(jo[0]), atol=1e-5)
     np.testing.assert_allclose(to[1].numpy(), np.asarray(jo[1]), atol=1e-3)
@@ -111,7 +111,7 @@ def test_train_routes_by_device():
 def test_sanitize_counts_diverged_patches():
     (_, _), (tc, _) = _runs()
     cfg = _cfg(tcfg)
-    dkp, ckp = tcomp.default_params(cfg)
+    dkp, ckp = tcomp.default_params(cfg, device="cpu")
     d = tc.depth_gp._replace(alpha=tc.depth_gp.alpha.clone())
     d.alpha[3] = float("nan")
     d.alpha[7] *= 1e6
@@ -122,27 +122,20 @@ def test_sanitize_counts_diverged_patches():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys\n"
-            "import gp_compressor_tpu_torch\n"
-            "import gp_compressor_tpu_torch.workloads.compressor\n"
-            "import gp_compressor_tpu_torch.io.convert\n"
-            "import gp_compressor_tpu_torch.testing.sogp_regimes\n"
-            "import gp_compressor_tpu_torch.utils.synthetic\n"
-            "import gp_compressor_tpu_torch.geometry.transforms\n"
-            "import gp_compressor_tpu_torch.ops.linalg_f32\n"
-            "import gp_compressor_tpu_torch.models.exact_gp\n"
-            "import gp_compressor_tpu_torch.inference.hmc\n"
-            "import gp_compressor_tpu_torch.inference.nuts\n"
-            "import gp_compressor_tpu_torch.inference.vi\n"
-            "import gp_compressor_tpu_torch.inference.smc\n"
-            "import gp_compressor_tpu_torch.workloads.registration\n"
-            "import gp_compressor_tpu_torch.workloads.mapping\n"
-            "import gp_compressor_tpu_torch.testing.mapping_case\n"
-            "import gp_compressor_tpu_torch.models.dictionary\n"
-            "import gp_compressor_tpu_torch.workloads.ksvd_compressor\n"
-            "import gp_compressor_tpu_torch.workloads.icp\n"
-            "import gp_compressor_tpu_torch.io.artifact\n"
-            "import gp_compressor_tpu_torch.testing.ksvd_case\n"
+    """Every module of the port imports, and one small CLI run goes
+    through (the commands import their modules lazily), with neither jax
+    nor the JAX package in sys.modules afterwards."""
+    code = ("import pkgutil, sys\n"
+            "import gp_compressor_tpu_torch as pkg\n"
+            "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.')]\n"
+            "assert 'gp_compressor_tpu_torch.cli' in mods, mods\n"
+            "for m in mods:\n"
+            "    __import__(m)\n"
+            "from gp_compressor_tpu_torch import cli\n"
+            "cli.main(['gp-compress', '--n-points', '600', '--res', '0.4', "
+            "'--sz', '4', '--max-patches', '64', '--max-ppp', '16', "
+            "'--capacity', '7', '--device', 'cpu'])\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'gp_compressor_tpu.')) or m == "
             "'gp_compressor_tpu']\n"

@@ -209,7 +209,7 @@ def test_prediction_grid_and_reproject_match_jax():
     jcfg, tcfg = JPatchConfig(**KW), TPatchConfig(**KW)
     jg = jax.jit(jpatches.prediction_grid, static_argnums=(0, 1))(
         jcfg, jnp.float32)
-    tg = tpatches.prediction_grid(tcfg, torch.float32)
+    tg = tpatches.prediction_grid(tcfg, torch.float32, device="cpu")
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6)
     depth = np.random.default_rng(3).uniform(
         -0.1, 0.1, size=(jb.mask.shape[0], jg.shape[0])).astype(np.float32)

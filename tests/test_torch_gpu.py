@@ -12,7 +12,9 @@ in float64 (a NUTS transition, HMC steps, ADVI steps, an SMC refinement
 step against the small mapping case's map), and compress_calibrated
 (method="hmc") launching the kernel twice; the K-SVD codec (OMP and one
 outer sweep on the card against the CPU in float64 with the same draws,
-one stop-test read per sweep) and ICP on the card against the CPU.
+one stop-test read per sweep) and ICP on the card against the CPU; the
+native IO library's build on the card's machine, and the command line
+on its default device (the card).
 
 This file imports no JAX. Run it on a machine with a CUDA card:
 
@@ -280,7 +282,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError):           # not float32
         call(kp, cfg, init, X.double(), Y, M)
     with pytest.raises(ValueError):          # state on another device
-        call(kp, cfg, sparse_gp.init_batch(cfg, X.shape[0]), X, Y, M)
+        call(kp, cfg, sparse_gp.init_batch(cfg, X.shape[0], device="cpu"),
+             X, Y, M)
     big = sogp_regimes.regime("strict_d1", slots=129, capacity=100)[0]
     with pytest.raises(ValueError):          # more slots than the kernel takes
         call(kp, big, sparse_gp.init_batch(big, X.shape[0], device=dev),
@@ -446,3 +449,56 @@ def test_icp_register_on_card_matches_cpu(dev):
     assert int(out.n_matched) == int(ref.n_matched)
     for a, b in ((out.R, ref.R), (out.t, ref.t)):
         assert float(torch.max(torch.abs(a.cpu() - b))) <= 1e-9
+
+
+def test_native_library_builds_on_the_card_machine(dev, tmp_path):
+    """The port's native IO library compiles there from native/gpio.cpp
+    into build/torch_native/ and writes JAX's PCD bytes (the NumPy
+    writer's) for a binary cloud."""
+    import numpy as np
+
+    from gp_compressor_tpu_torch.io import native, pcd
+
+    assert native.available()
+    assert native.build()._name.startswith(str(native.BUILD_DIR))
+    r = np.random.default_rng(0)
+    pts = r.uniform(-3, 3, size=(500, 3)).astype(np.float32)
+    cols = r.integers(0, 256, size=(500, 3)).astype(np.float32)
+    a, b = str(tmp_path / "a.pcd"), str(tmp_path / "b.pcd")
+    native.write_pcd(a, pts, cols)
+    pcd.write(b, pts, cols)
+    assert open(a, "rb").read() == open(b, "rb").read()
+    got = native.read_pcd(a)
+    assert np.array_equal(got[0], pts) and np.array_equal(got[1], cols)
+
+
+def test_cli_runs_on_the_card_by_default(dev, tmp_path, capsys):
+    """gp-compress with no --device runs on the card: two kernel
+    launches, and its checkpoint loads strictly into a template on the
+    card, leaves on the card."""
+    import argparse
+
+    from gp_compressor_tpu_torch import cli
+    from gp_compressor_tpu_torch.io import checkpoint
+    from gp_compressor_tpu_torch.utils import synthetic
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    argv = ["--n-points", "20000", "--res", "0.3", "--sz", "10",
+            "--max-patches", "512", "--max-ppp", "64"]
+    ckpt = str(tmp_path / "c.npz")
+    sogp_train.LAUNCHES = 0
+    cli.main(["gp-compress", *argv, "--checkpoint", ckpt])
+    assert sogp_train.LAUNCHES == 2
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "Size of original point cloud: 20000"
+    cfg = cli._gp_config(argparse.Namespace(
+        res=0.3, sz=10, max_patches=512, max_ppp=64, capacity=100,
+        eps_tol=1e-6, dict_size=200, words_max=10, rgb_dict_size=600,
+        rgb_words_max=20))
+    pts, cols = (torch.from_numpy(a).to(dev)
+                 for a in synthetic.room_cloud(n=20000, seed=0))
+    like = compressor.compress(pts, cols, torch.ones(20000, dtype=torch.bool,
+                                                     device=dev), cfg)
+    got = checkpoint.load(ckpt, like, strict=True)
+    assert got.depth_gp.C.is_cuda and got.patch.X.is_cuda
+    assert int(got.patch.n_leaves) == int(like.patch.n_leaves)

@@ -78,7 +78,7 @@ def test_icp_register_matches_jax():
     cfg, jc, scan, truth = _icp_case()
     valid = np.ones(scan.shape[0], bool)
     jres = jicp.icp_register(jc, jnp.asarray(scan), jnp.asarray(valid), cfg)
-    tc = convert.compressed_from_numpy(_asdict(jc))
+    tc = convert.compressed_from_numpy(_asdict(jc), device="cpu")
     ticp.READS = 0
     tres = ticp.icp_register(tc, T(scan), T(valid),
                              convert.compressor_config_from_dict(
@@ -98,7 +98,7 @@ def test_icp_stops_at_max_iters_and_on_tolerance():
     """max_iters bounds the loop (one read per iteration); a tolerance
     above the first increment stops after one iteration."""
     cfg, jc, scan, _ = _icp_case()
-    tc = convert.compressed_from_numpy(_asdict(jc))
+    tc = convert.compressed_from_numpy(_asdict(jc), device="cpu")
     tcf = convert.compressor_config_from_dict(dataclasses.asdict(cfg))
     valid = torch.ones(scan.shape[0], dtype=torch.bool)
     for kw, iters in ((dict(max_iters=2), 2), (dict(tol=1.0), 1),
@@ -158,7 +158,7 @@ def _accuracy():
         jc = compress(jnp.asarray(mp), jnp.asarray(mc),
                       jnp.ones(mp.shape[0], bool), jc_cfg,
                       jax.random.key(seed))
-        tc = convert.compressed_from_numpy(_asdict(jc))
+        tc = convert.compressed_from_numpy(_asdict(jc), device="cpu")
         jst, jal = jreg.register(jc, jnp.asarray(scan), jnp.asarray(scols),
                                  jnp.asarray(valid), jc_cfg, jr_cfg)
         tst, tal = treg.register(tc, T(scan), T(scols), T(valid), tc_cfg,

@@ -209,7 +209,7 @@ def test_compressed_converts_from_jax():
     jc, _ = _compressed()
     tc = convert.ksvd_compressed_from_numpy(
         {**{f: _asdict(getattr(jc, f)) for f in ("raster", "depth", "rgb")},
-         "cfg": dataclasses.asdict(JCFG)})
+         "cfg": dataclasses.asdict(JCFG)}, device="cpu")
     assert tc.cfg == TCFG and tc.depth.iters == int(jc.depth.iters)
     assert tc.raster.grid.keys.shape == jc.raster.grid.keys.shape
     np.testing.assert_array_equal(tc.rgb.code.I.numpy(),
@@ -235,7 +235,7 @@ def test_artifact_files_byte_identical_to_jax(tmp_path):
     # the port's to_artifact of the same codes carried across
     carried = convert.ksvd_compressed_from_numpy(
         {**{f: _asdict(getattr(jc, f)) for f in ("raster", "depth", "rgb")},
-         "cfg": dataclasses.asdict(JCFG)})
+         "cfg": dataclasses.asdict(JCFG)}, device="cpu")
     t_art = tksvd.to_artifact(carried)
     assert _files(tart.write, t_art, tmp_path, "port") == jfiles
     # and the read back equals the JAX reader's

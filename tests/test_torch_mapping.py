@@ -55,7 +55,7 @@ def _asdict(nt):
 
 
 def _port_state(js):
-    return convert.map_state_from_numpy(_asdict(js))
+    return convert.map_state_from_numpy(_asdict(js), device="cpu")
 
 
 def _jscan(s):
@@ -105,7 +105,7 @@ def _jax_stream():
 def _claims(tables, state_np, probe):
     """The claims the port's tables make on probe points (with nm from the
     stored frames and means)."""
-    st = convert.map_state_from_numpy(state_np)
+    st = convert.map_state_from_numpy(state_np, device="cpu")
     nm = torch.cat([st.rotations[:, :, 0], st.means], 1)
     grid = st.grid(TCFG.patch.res)
     return treg.claim_with_tables(tables._replace(nm=nm), grid, T(probe),
@@ -142,8 +142,9 @@ def _assert_state(t, j, atol=ATOL, tables=True):
             np.testing.assert_allclose(a, b, atol=atol, err_msg=f)
     if tables:
         probe = _probe()
-        want = _claims(convert.claim_tables_from_numpy(jd["tables"]), jd,
-                       probe)
+        want = _claims(convert.claim_tables_from_numpy(jd["tables"],
+                                                       device="cpu"),
+                       jd, probe)
         got = _claims(t.tables, jd, probe)
         assert want[2].float().mean() > 0.3
         for a, b in zip(got, want):
@@ -309,7 +310,7 @@ def test_occupancy_matches_jax():
         a, b = getattr(occ_t, f).numpy(), np.asarray(getattr(occ_j, f))
         np.testing.assert_allclose(a, b, atol=ATOL, err_msg=f)
     assert int(tsg.size(occ_t).sum()) > 100
-    grid = tpatches.prediction_grid(TCFG.patch, torch.float64)
+    grid = tpatches.prediction_grid(TCFG.patch, torch.float64, device="cpu")
     Xs = grid.expand(B, G, 2)
     p_t = tmap.predict_occupancy(occ_t, TCFG, Xs)
     p_j = jmap.predict_occupancy(occ_j, JCFG, jnp.asarray(Xs.numpy()))
@@ -331,7 +332,7 @@ def test_map_state_round_trip():
     """A JAX state carried across keeps every value and dtype."""
     states, _ = _jax_inserts()
     d = _asdict(states[2])
-    t = convert.map_state_from_numpy(d)
+    t = convert.map_state_from_numpy(d, device="cpu")
     assert isinstance(t, tmap.MapState)
     for f, v in d.items():
         pairs = ([(getattr(getattr(t, f), g), a) for g, a in v.items()]

@@ -217,7 +217,7 @@ def _full(pkg, L, trained):
     if pkg == "jax":
         out = jax.jit(jreg.build_claim_tables_dense)(
             *(jnp.asarray(a) for a in args))
-        return convert.claim_tables_from_numpy(_asdict(out))
+        return convert.claim_tables_from_numpy(_asdict(out), device="cpu")
     return treg.build_claim_tables_dense(*(torch.as_tensor(a) for a in args))
 
 
@@ -250,7 +250,8 @@ def test_dense_tables_full_build_matches_jax():
 
 def test_empty_dense_tables_match_jax():
     jt = jreg.empty_claim_tables_dense(504, B, dtype=jnp.float64)
-    tt = treg.empty_claim_tables_dense(504, B, dtype=torch.float64)
+    tt = treg.empty_claim_tables_dense(504, B, dtype=torch.float64,
+                                       device="cpu")
     for f in treg.ClaimTables._fields:
         a, b = getattr(tt, f).numpy(), np.asarray(getattr(jt, f))
         assert a.dtype == b.dtype
@@ -271,7 +272,7 @@ def test_dense_tables_update_matches_jax_and_full_build():
         jreg.ClaimTables(*(jnp.asarray(getattr(jstart, f).numpy())
                            for f in treg.ClaimTables._fields)),
         *(jnp.asarray(a) for a in args))
-    ju = convert.claim_tables_from_numpy(_asdict(ju))
+    ju = convert.claim_tables_from_numpy(_asdict(ju), device="cpu")
     tu = treg.update_claim_tables(start, *(torch.as_tensor(a) for a in args))
     full2 = _full("port", L, L["trained2"])
     assert (ch < B).sum() >= 4

@@ -120,7 +120,7 @@ def _setup(f64=True):
     cfg = JCFG if f64 else _cfg(jcfg, jnp.float32)
     jc = jcomp.compress(jnp.asarray(mpts), jnp.asarray(mcols),
                         jnp.ones(3000, bool), cfg, jax.random.key(0))
-    return jc, convert.compressed_from_numpy(_asdict(jc)), scan
+    return jc, convert.compressed_from_numpy(_asdict(jc), device="cpu"), scan
 
 
 @pytest.mark.parametrize("table", [True, False], ids=["tables", "27-pass"])
@@ -153,7 +153,7 @@ def test_claims_match_jax_exactly(table):
         # the JAX tables carried across claim the same (cell_row is not
         # compared: duplicate writers leave any of several equal rows)
         jt = jreg._map_claim_tables(jc)
-        tt = convert.claim_tables_from_numpy(_asdict(jt))
+        tt = convert.claim_tables_from_numpy(_asdict(jt), device="cpu")
         got = treg.claim_with_tables(tt, tc.patch.grid, T(spts), T(valid),
                                      0.3, out_fill=256)
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(jout[0]))
@@ -262,7 +262,7 @@ def test_gradient_step_matches_jax(blend):
     Wb, Cb, Mb = treg._bank_points(claim, T(spts), T(scols), claimed, B, P)
     Cb = torch.where(Mb[..., None], Cb - tc.patch.rgb_means[:, None, :], 0.0)
     centers = tvoxel.voxel_centers(tc.patch.grid)[:B]
-    dkp, ckp = tcomp.default_params(TCFG)
+    dkp, ckp = tcomp.default_params(TCFG, device="cpu")
     tb = treg._bank_step(tc, TCFG, rt, dkp, ckp, Wb, Cb, Mb, centers)
     jkp = jcomp.default_params(JCFG)
     jb = jax.jit(jreg._bank_step, static_argnums=(1, 2))(
@@ -316,7 +316,8 @@ def test_register_matches_jax(case):
         rkw = dict(REGISTER_CASES[case], max_steps=24)
         jst2, jpts2, tst2, tpts2 = _register_pair(
             rkw, jc, tc, spts, scols, valid, jinit=jst,
-            tinit=convert.registration_state_from_numpy(_asdict(jst)))
+            tinit=convert.registration_state_from_numpy(_asdict(jst),
+                                                        device="cpu"))
         assert int(tst2.step_nbr) == int(jst2.step_nbr) > int(jst.step_nbr)
         np.testing.assert_allclose(tst2.R_cloud.numpy(),
                                    np.asarray(jst2.R_cloud), atol=1e-9)
@@ -327,7 +328,8 @@ def test_register_matches_jax(case):
         still = jst._replace(delta=jnp.zeros_like(jst.delta))
         jst3, _, tst3, _ = _register_pair(
             rkw, jc, tc, spts, scols, valid, jinit=still,
-            tinit=convert.registration_state_from_numpy(_asdict(still)))
+            tinit=convert.registration_state_from_numpy(_asdict(still),
+                                                        device="cpu"))
         assert int(tst3.step_nbr) == int(jst3.step_nbr) == int(jst.step_nbr)
 
 

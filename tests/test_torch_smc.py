@@ -123,7 +123,7 @@ def test_smc_steps_match_jax():
     jr = jsmc.systematic_resample(st, k)
     u0 = jax.random.uniform(k, (), minval=0.0, maxval=1.0 / P)
     tr = tsmc.systematic_resample(
-        convert.particle_state_from_numpy(_asdict(st)),
+        convert.particle_state_from_numpy(_asdict(st), device="cpu"),
         torch.tensor(float(u0), dtype=torch.float64))
     np.testing.assert_array_equal(tr.poses.numpy(), np.asarray(jr.poses))
     assert float(tsmc.ess(T(np.array(st.log_weights)))) == pytest.approx(
@@ -151,7 +151,7 @@ def _calib(RBF, asarray):
 def test_map_as_compressed_matches_jax():
     """Every field of the sorted-slot view, and a register call on it."""
     js = _jax_map()
-    ts = convert.map_state_from_numpy(_asdict(js))
+    ts = convert.map_state_from_numpy(_asdict(js), device="cpu")
     jv = jmap._map_as_compressed(js, JCFG)
     tv = tmap._map_as_compressed(ts, TCFG)
     jd, td = _asdict(jv), _asdict(tv)
@@ -179,7 +179,7 @@ def test_smc_refine_pose_matches_jax():
     against the map of scan 0: the refined pose, the particles and the
     trace."""
     js = _jax_map()
-    ts = convert.map_state_from_numpy(_asdict(js))
+    ts = convert.map_state_from_numpy(_asdict(js), device="cpu")
     moved = case.moved_scans()[1]
     cfg = dict(num_particles=32, pose_proposal_std_t=0.01,
                pose_proposal_std_r=0.004)
@@ -199,7 +199,7 @@ def test_smc_refine_pose_matches_jax():
 
 
 def test_smc_refine_pose_reads_nothing(monkeypatch):
-    ts = convert.map_state_from_numpy(_asdict(_jax_map()))
+    ts = convert.map_state_from_numpy(_asdict(_jax_map()), device="cpu")
     pts, cols, valid = (T(a) for a in case.moved_scans()[1])
     reads = importlib.import_module("test_torch_calibration")._count_reads(
         monkeypatch)

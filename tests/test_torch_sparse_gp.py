@@ -32,7 +32,7 @@ torch.set_num_threads(1)
 
 F32 = jnp.float32
 JKP = jk.RBFParams(sigmaf_sq=jnp.asarray(100.0, F32), l_sq=jnp.asarray(1.0, F32))
-TKP = sogp_regimes.params()
+TKP = sogp_regimes.params(device="cpu")
 
 
 def _jcfg(cfg):
@@ -44,8 +44,8 @@ def _jcfg(cfg):
 
 
 def _to_port(st):
-    return convert.state_from_numpy({k: np.asarray(v)
-                                     for k, v in st._asdict().items()})
+    return convert.state_from_numpy(
+        {k: np.asarray(v) for k, v in st._asdict().items()}, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,8 +70,9 @@ def _jax_state(cfg, X, Y, mask, pallas):
 
 def _port_state(cfg, X, Y, mask, **kw):
     return sogp_train.add_points_batch_cuda(
-        TKP, cfg, tsg.init_batch(cfg, X.shape[0]), torch.from_numpy(X),
-        torch.from_numpy(Y), torch.from_numpy(mask), **kw)
+        TKP, cfg, tsg.init_batch(cfg, X.shape[0], device="cpu"),
+        torch.from_numpy(X), torch.from_numpy(Y), torch.from_numpy(mask),
+        **kw)
 
 
 def test_sqdist_and_gram_match_jax():
@@ -123,7 +124,7 @@ def test_sanitize_batch_matches_jax():
     d["C"][2, 0, 0] = np.nan            # non-finite state
     d["alpha"][5] *= 1e6                # finite state, garbage predictions
     jst = jsg.SOGPState(**{k: jnp.asarray(v) for k, v in d.items()})
-    tst = convert.state_from_numpy(d)
+    tst = convert.state_from_numpy(d, device="cpu")
     probes = np.random.default_rng(4).uniform(-0.1, 0.1, size=(6, 2)) \
         .astype(np.float32)
     jout, jbad = jsg.sanitize_batch(jst, JKP, 0.1, max_pred=1.5,
@@ -144,7 +145,7 @@ def test_sanitize_batch_matches_jax():
 @pytest.mark.parametrize("name", sogp_regimes.REGIMES)
 def test_training_regimes_match_jax(name, pallas):
     cfg, X, Y, mask = sogp_regimes.regime(name)
-    ref = convert.state_from_numpy(_jax_regime(name, pallas))
+    ref = convert.state_from_numpy(_jax_regime(name, pallas), device="cpu")
     out = _port_state(cfg, X, Y, mask)
     sogp_regimes.compare(name, ref, out, torch.from_numpy(X),
                          torch.from_numpy(Y), torch.from_numpy(mask))
@@ -256,7 +257,7 @@ def test_geometric_thresholds_from_config_match_jax():
     cfg, X, Y, mask = sogp_regimes.regime("geometric")
     ref = _to_port(_jax_state(cfg, X, Y, mask, pallas=False))
     out = tsg.add_points_batch(TKP, TNoise(torch.tensor(0.1)), cfg,
-                               tsg.init_batch(cfg, X.shape[0]),
+                               tsg.init_batch(cfg, X.shape[0], device="cpu"),
                                torch.from_numpy(X), torch.from_numpy(Y),
                                torch.from_numpy(mask))
     sogp_regimes.compare("geometric", ref, out, torch.from_numpy(X),
@@ -297,7 +298,7 @@ def test_per_point_eps_tol_matches_jax():
                                jnp.asarray(X), jnp.asarray(Y),
                                jnp.asarray(mask), eps_tol=jnp.asarray(eps))
     tst = tsg.add_points_batch(TKP, TNoise(torch.tensor(0.1)), cfg,
-                               tsg.init_batch(cfg, X.shape[0]),
+                               tsg.init_batch(cfg, X.shape[0], device="cpu"),
                                torch.from_numpy(X), torch.from_numpy(Y),
                                torch.from_numpy(mask),
                                eps_tol=torch.from_numpy(eps))
@@ -310,21 +311,35 @@ def test_cpu_wrapper_takes_the_plain_version_and_checks_inputs():
     X, Y, mask = X[:7], Y[:7], mask[:7]
     a = _port_state(cfg, X, Y, mask)
     b = sogp_train.add_points_batch_plain(
-        TKP, cfg, tsg.init_batch(cfg, 7), torch.from_numpy(X),
+        TKP, cfg, tsg.init_batch(cfg, 7, device="cpu"), torch.from_numpy(X),
         torch.from_numpy(Y), torch.from_numpy(mask))
     for u, v in zip(a, b):
         np.testing.assert_array_equal(u.numpy(), v.numpy())
     assert sogp_train.LAUNCHES == 0          # no kernel ran on the CPU
     with pytest.raises(ValueError):          # the kernel needs CUDA tensors
-        sogp_train.launch(cfg, tsg.init_batch(cfg, 7), tsg.init_batch(cfg, 7),
+        sogp_train.launch(cfg, tsg.init_batch(cfg, 7, device="cpu"),
+                          tsg.init_batch(cfg, 7, device="cpu"),
                           torch.from_numpy(X), torch.from_numpy(Y),
                           torch.from_numpy(mask),
                           sogp_train.hyper_row(TKP, cfg, "cpu"))
-    with pytest.raises(NotImplementedError):
-        tsg.add_points_batch(TKP, TNoise(torch.tensor(0.1)), cfg,
-                             tsg.init_batch(cfg, 7), torch.from_numpy(X),
-                             torch.from_numpy(Y), torch.from_numpy(mask),
-                             keys=jax.random.split(jax.random.key(0), 7))
+    # keys: the [B, n] permutations JAX's per-patch keys draw, the order
+    # each patch's rows train in
+    keys = jax.random.split(jax.random.key(0), 7)
+    perm = np.stack([np.asarray(jax.random.permutation(k, X.shape[1]))
+                     for k in keys])
+    take = lambda a: torch.from_numpy(np.take_along_axis(
+        a, perm.reshape(perm.shape + (1,) * (a.ndim - 2)), axis=1))
+    noise = TNoise(torch.tensor(0.1))
+    c = tsg.add_points_batch(TKP, noise, cfg,
+                             tsg.init_batch(cfg, 7, device="cpu"),
+                             torch.from_numpy(X), torch.from_numpy(Y),
+                             torch.from_numpy(mask),
+                             keys=torch.from_numpy(perm))
+    d = tsg.add_points_batch(TKP, noise, cfg,
+                             tsg.init_batch(cfg, 7, device="cpu"),
+                             take(X), take(Y), take(mask))
+    for u, v in zip(c, d):
+        np.testing.assert_array_equal(u.numpy(), v.numpy())
 
 
 def test_arbitrated_rule_passes_plain_and_rejects_astray_patches():
@@ -336,15 +351,15 @@ def test_arbitrated_rule_passes_plain_and_rejects_astray_patches():
     X = torch.from_numpy(X) * 0.1
     Y, M = torch.from_numpy(Y) * 0.05, torch.from_numpy(M)
     cfg = dataclasses.replace(cfg, capacity=30, slots=32, eps_tol=1e-6)
-    kp = sogp_regimes.params()
+    kp = sogp_regimes.params(device="cpu")
     s20 = torch.tensor(cfg.s20)
-    init = tsg.init_batch(cfg, X.shape[0])
+    init = tsg.init_batch(cfg, X.shape[0], device="cpu")
     ref = sogp_train.add_points_batch_plain(kp, cfg, init, X, Y, M)
     cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
     kp64 = type(kp)(*[v.double() for v in kp])
     ref64 = sogp_train.add_points_batch_plain(
-        kp64, cfg64, tsg.init_batch(cfg64, X.shape[0]), X.double(),
-        Y.double(), M)
+        kp64, cfg64, tsg.init_batch(cfg64, X.shape[0], device="cpu"),
+        X.double(), Y.double(), M)
     res = sogp_regimes.arbitrate(ref64, ref, ref, X, Y, M, kp, s20)
     assert res["f64"]["astray"] == 0
     assert 0 < res["plain"]["astray"] == res["out"]["astray"] < 130
