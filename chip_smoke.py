@@ -97,9 +97,29 @@ Phases, each of which must pass (any failure exits non-zero):
                over 5 synthetic scans and over the fixture; each held to
                the JAX command line's numbers (port_anchors.py cli), each
                subcommand's wall printed.
+ 13. sharded — the multi-device layer (`parallel/`): two ranks of a gloo
+               group share cuda:0 (NCCL refuses two ranks on one card;
+               `--sharded-rank` starts each): compress_decompress on a
+               (2, 1) mesh at the bench configuration (1024 patches per
+               rank, 2 kernel launches per rank per round trip), the
+               gathered claims, banks and GP states bit-equal to phase 3's
+               single run, RMSE within 1e-6 relative, every rank's front
+               end equal by checksum; the kernel timed on each rank's
+               shard with both ranks launching (a shared card: not a
+               scaling number); the calibrated round trip (MAP in
+               float64) on (2, 1) and (1, 2) meshes with the calibrated
+               values bit-equal to the single run's, the float64 MAP
+               bit-equal on (2, 1) and within 1e-10 relative on (1, 2),
+               where the starts split; register under phase 7's motion
+               (equal steps, pose within 2e-6); shard_report's per-rank
+               layout and peak memory; then one rank under NCCL, held to
+               phase 3 exactly.
 
 The last three lines of standard output are the kernels' JSON object, the
 card's `nvidia-smi` name and power limit, and the result object.
+
+`shard_probe.py` runs phase 13's ranks one per card under NCCL on a
+machine with two or more cards.
 
     python3 chip_smoke.py --probe [f64_pairs] [arbitrate]
 
@@ -2213,6 +2233,341 @@ def cli_phase(dev, kind, card):
     return site
 
 
+SHARD_RANKS = 2           # phase 13: ranks sharing cuda:0 over gloo
+
+
+def bits_equal(a, b) -> bool:
+    """Bit-for-bit equality of two tensors (NaN-safe)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def front_end_digest(batch) -> str:
+    """sha256 of the front end's claims, n_leaves, means and rotations."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in (batch.claims, batch.n_leaves, batch.means, batch.rotations):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharded_rank(outdir: str, backend: str, full: bool) -> int:
+    """One rank of phase 13 (or of shard_probe.py), started by run_ranks
+    with torchrun's variables on cuda:{LOCAL_RANK % device_count}, in a
+    `backend` group of WORLD_SIZE ranks: the round trip on a (world, 1)
+    mesh and the ranks' front-end checksums; with `full`, also the kernel
+    on this rank's rows, the calibrated round trip on (world, 1) and
+    (1, world) meshes, register and shard_report. Prints one JSON line;
+    rank 0 saves the gathered round trip to outdir."""
+    import torch.distributed as dist
+
+    from gp_compressor_tpu_torch.config import MeshConfig, RegistrationConfig
+    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+    from gp_compressor_tpu_torch.geometry import transforms
+    from gp_compressor_tpu_torch.inference import hmc
+    from gp_compressor_tpu_torch.models import sparse_gp
+    from gp_compressor_tpu_torch.parallel import distributed
+    from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
+    from gp_compressor_tpu_torch.parallel.shard_report import shard_report
+    from gp_compressor_tpu_torch.utils import synthetic
+    from gp_compressor_tpu_torch.workloads import compressor, registration
+
+    distributed.initialize(backend=backend, device_type="cuda")
+    dev = distributed.local_device("cuda")
+    torch.cuda.set_device(dev)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    sogp_train.build()
+    res = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "device": str(dev), "card": torch.cuda.get_device_name(dev),
+           "build_s": sogp_train.BUILD_INFO["seconds"]}
+    ccfg = bench_config()
+    pts_np, cols_np = synthetic.room_cloud(n=N_POINTS, seed=0)
+    pts = torch.from_numpy(pts_np).to(dev)
+    cols = torch.from_numpy(cols_np).to(dev)
+    valid = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+    mesh = mesh_lib.make_mesh(MeshConfig(), "cuda")       # (world, 1)
+    walls = {}
+
+    # ---- the round trip: 1 warm-up, TIMED_RUNS timed, launches counted
+    def round_trip():
+        comp, out = compressor.compress_decompress(pts, cols, valid, ccfg,
+                                                   mesh=mesh)
+        torch.cuda.synchronize()
+        return comp, out
+
+    round_trip()
+    dist.barrier()
+    sogp_train.LAUNCHES = 0
+    times = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        comp, out = round_trip()
+        times.append(time.perf_counter() - t0)
+    res["launches"] = sogp_train.LAUNCHES
+    walls["round_trip"] = times
+    res["rmse"] = float(compressor.reconstruction_rmse(comp, ccfg,
+                                                       mesh=mesh))
+    res["local_rows"] = int(comp.patch.mask.shape[0])
+    whole = compressor.gather_cloud(comp, mesh)
+    B, G = ccfg.patch.max_patches, ccfg.patch.sz ** 2
+    valid_out = mesh_lib.gather_leading(out[2], mesh, B * G)
+    if rank == 0:
+        torch.save({"claims": whole.patch.claims.cpu(),
+                    "mask": whole.patch.mask.cpu(),
+                    "X": whole.patch.X.cpu(),
+                    "n_leaves": whole.patch.n_leaves.cpu(),
+                    "valid": valid_out.cpu(),
+                    "depth_gp": [t.cpu() for t in whole.depth_gp],
+                    "rgb_gp": [t.cpu() for t in whole.rgb_gp]},
+                   f"{outdir}/round_trip.pt")
+
+    # ---- every rank's own front end: the same banks, bit for bit
+    batch = compressor.project(pts, cols, valid, ccfg)
+    digests = [None] * world
+    dist.all_gather_object(digests, front_end_digest(batch))
+    rows = mesh_lib.patch_rows(B, mesh)
+    res["digests"] = digests
+    res["rows_match_front_end"] = all(
+        bits_equal(getattr(comp.patch, k), getattr(batch, k)[rows])
+        for k in compressor.BANK_LEAVES) and bits_equal(comp.patch.claims,
+                                                        batch.claims)
+    if not full:
+        print(json.dumps({**res, "walls": walls}), flush=True)
+        dist.destroy_process_group()
+        return 0
+
+    # ---- the kernel on this rank's shard, both ranks launching at once
+    lb = comp.patch
+    dkp, ckp = compressor.default_params(ccfg, dev)
+    kern_res = {}
+    for gpcfg, kp, Y in ((ccfg.depth_gp, dkp, lb.y), (ccfg.rgb_gp, ckp,
+                                                       lb.rgb)):
+        init = sparse_gp.init_batch(gpcfg, lb.mask.shape[0], device=dev)
+        st = sparse_gp.SOGPState(*[torch.empty_like(a) for a in init])
+        row = sogp_train.hyper_row(kp, gpcfg, dev)
+        kern = lambda: sogp_train.launch(gpcfg, init, st, lb.X, Y, lb.mask,
+                                         row)
+        plain = lambda: sogp_train.add_points_batch_plain(
+            kp, gpcfg, init, lb.X, Y, lb.mask)
+        kern()
+        torch.cuda.synchronize()
+        dist.barrier()
+        p1, k1, k2, p2 = (event_ms(plain, 1), event_ms(kern, KERNEL_REPS),
+                          event_ms(kern, KERNEL_REPS), event_ms(plain, 1))
+        bound = train_bound(gpcfg, lb.X, lb.mask, st)
+        kern_res[gpcfg.dout] = {"kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                                "bound_ms": bound["bound_ms"],
+                                "bound_by": bound["bound_by"]}
+    res["kernel"] = kern_res
+
+    # ---- the calibrated round trip (MAP in float64) on both meshes
+    meshes = {"data": mesh,
+              "chain": mesh_lib.make_mesh(MeshConfig(chain_size=world),
+                                          "cuda")}
+    cal = {}
+    # an untimed single run first, so no timed run carries the warm-up
+    for name, m in [("warm-up", None), ("single", None), *meshes.items()]:
+        t0 = time.perf_counter()
+        c, kp, s20, _ = compressor.compress_decompress_calibrated(
+            pts, cols, valid, ccfg, calib_dtype=torch.float64, mesh=m)
+        torch.cuda.synchronize()
+        walls[f"calibrated_{name}"] = time.perf_counter() - t0
+        cal[name] = (c, kp, s20)
+    del walls["calibrated_warm-up"]
+    th = {k: torch.stack([v[1].sigmaf_sq, v[1].l_sq, v[2]]) for k, v in
+          cal.items()}
+    res["calibrated_theta"] = th["single"].tolist()
+    res["calibrated_equal"] = {k: bits_equal(th[k], th["single"])
+                               for k in meshes}
+    # the float64 MAP itself: on (world, 1) every rank ascends all 4
+    # starts as the single run does; on (1, world) fewer each, and a
+    # start's gradient then differs in its last bits (the broadcast's
+    # backward reduces over the patches with a launch chosen by the
+    # number of outputs)
+    logpost, theta0 = compressor._calib_logpost(batch, ccfg, 32, 64,
+                                                torch.float64)
+    t64 = {k: hmc.map_estimate_multi(logpost, theta0, mesh=m)[0]
+           for k, m in [("single", None), *meshes.items()]}
+    res["map64_theta"] = t64["single"].tolist()
+    res["map64_equal"] = {k: bits_equal(t64[k], t64["single"])
+                          for k in meshes}
+    res["map64_rel"] = {k: float(((t64[k] - t64["single"])
+                                  / t64["single"]).abs().max())
+                        for k in meshes}
+
+    # ---- register the moved scan (phase 7's motion) on the calibrated map
+    ang = torch.tensor(PERTURB_ANG, device=dev)
+    moved = transforms.apply(pts, transforms.euler_xyz(ang),
+                             torch.tensor(PERTURB_T, device=dev))
+    rcfg = RegistrationConfig(max_steps=80, step_mode="rprop")
+    reg = {}
+    for name, m in (("warm-up", None), ("single", None), ("data", mesh)):
+        c, kp, s20 = cal[name if m is not None else "single"]
+        t0 = time.perf_counter()
+        st, _ = registration.register(c, moved, cols, valid, ccfg, rcfg,
+                                      depth_kp=kp, depth_s20=s20, mesh=m)
+        torch.cuda.synchronize()
+        walls[f"register_{name}"] = time.perf_counter() - t0
+        reg[name] = st
+    del walls["register_warm-up"]
+    res["register"] = {
+        "steps": [int(reg[k].step_nbr) for k in ("single", "data")],
+        "pose_max_diff": max(float((reg["data"].R_cloud
+                                    - reg["single"].R_cloud).abs().max()),
+                             float((reg["data"].t_cloud
+                                    - reg["single"].t_cloud).abs().max()))}
+
+    t0 = time.perf_counter()
+    res["shard_report"] = shard_report(ccfg, N_POINTS, mesh, rcfg=rcfg,
+                                       device=dev)
+    walls["shard_report"] = time.perf_counter() - t0
+    res["walls"] = walls
+    print(json.dumps(res), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_ranks(outdir, backend: str, n: int, full: bool) -> list:
+    """Run n ranks of sharded_rank (torchrun's variables, each rank's
+    LOCAL_RANK its rank: on a one-card machine every rank lands on
+    cuda:0) and return their JSON lines; any rank's failure fails."""
+    import os
+
+    from gp_compressor_tpu_torch.testing import dist_worker
+
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(
+        free_port()), WORLD_SIZE=str(n))
+    argv = [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+            str(outdir), backend, "full" if full else "round_trip"]
+    ranks = dist_worker.run_ranks(
+        [argv] * n, [dict(env, RANK=str(r), LOCAL_RANK=str(r))
+                     for r in range(n)], outdir, timeout=600)
+    for r, (rc, _, err) in enumerate(ranks):
+        check(rc == 0, f"[13] {backend} rank {r} exited {rc}:\n"
+                       f"{err[-4000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for _, out, _ in ranks]
+
+
+def hold_ranks(ranks, outdir, comp, rmse, ccfg, card) -> dict:
+    """The checks of a full sharded run (run_ranks(..., full=True))
+    against the single-process round trip `comp`, `rmse`: every rank's
+    line printed, launches, checksums, RMSE, calibrated theta, register,
+    shard layout, and rank 0's gathered round trip bit-equal to `comp`.
+    Returns the sharded kernel's line for the kernels object."""
+    B = ccfg.patch.max_patches
+    n = len(ranks)
+    gathered = torch.load(f"{outdir}/round_trip.pt", weights_only=True)
+    for r in ranks:
+        say(f"[13] rank {r['rank']} of {r['world']} ({r['backend']}, "
+            f"{r['device']}, {r['card']}; nvidia-smi: {card}): walls (s) "
+            f"{json.dumps(r['walls'])}; kernel at B={r['local_rows']}: "
+            f"{json.dumps(r['kernel'])}; rmse {r['rmse']!r}; launches "
+            f"{r['launches']} in {TIMED_RUNS} round trips; register "
+            f"{json.dumps(r['register'])}; calibrated theta "
+            f"{r['calibrated_theta']}, float64 MAP bit-equal "
+            f"{json.dumps(r['map64_equal'])}, relative difference "
+            f"{json.dumps(r['map64_rel'])}; shard report "
+            f"{json.dumps(r['shard_report'])}")
+        check(r["build_s"] == 0.0, "[13] a rank rebuilt the kernel")
+        check(r["local_rows"] == B // n, "[13] rows per rank")
+        check(r["launches"] == 2 * TIMED_RUNS,
+              f"[13] rank {r['rank']}: {r['launches']} kernel launches in "
+              f"{TIMED_RUNS} round trips, expected {2 * TIMED_RUNS}")
+        check(len(set(r["digests"])) == 1,
+              f"[13] the ranks' front ends differ: {r['digests']}")
+        check(r["rows_match_front_end"],
+              "[13] a rank's banks are not its rows of its front end")
+        check(abs(r["rmse"] - rmse) <= 1e-6 * rmse,
+              f"[13] sharded rmse {r['rmse']} vs single {rmse}")
+        # the calibrated values (float32, what training uses) bit-equal on
+        # both meshes; the float64 MAP bit-equal where each rank ascends
+        # every start, and to float64 rounding where the starts split
+        check(all(r["calibrated_equal"].values())
+              and r["map64_equal"]["data"]
+              and r["map64_rel"]["chain"] <= 1e-10,
+              f"[13] calibrated theta differs across meshes: "
+              f"{r['calibrated_equal']}; MAP float64 {r['map64_equal']}, "
+              f"relative {r['map64_rel']}")
+        steps = r["register"]["steps"]
+        check(steps[0] == steps[1] and steps[0] < 80
+              and r["register"]["pose_max_diff"] <= 2e-6,
+              f"[13] sharded register {r['register']}")
+        rep = r["shard_report"]["calibrated_pipeline"]
+        bad = {k: v for k, v in rep["leaves"].items()
+               if v["layout"] != ("whole" if k == "patch.claims"
+                                  else "partitioned")}
+        check(not bad, f"[13] shard report layout: {bad}")
+    check(len({r["rmse"] for r in ranks}) == 1
+          and len({str(r["calibrated_theta"]) for r in ranks}) == 1,
+          "[13] the ranks disagree on a reduced value")
+
+    # the gathered round trip against phase 3's single-process run
+    check(torch.equal(gathered["claims"], comp.patch.claims.cpu())
+          and torch.equal(gathered["mask"], comp.patch.mask.cpu())
+          and bits_equal(gathered["X"], comp.patch.X.cpu())
+          and int(gathered["n_leaves"]) == int(comp.patch.n_leaves),
+          "[13] gathered claims / banks differ from phase 3's")
+    for name in ("depth_gp", "rgb_gp"):
+        single = getattr(comp, name)
+        same = [bits_equal(a, b.cpu()) for a, b in zip(gathered[name],
+                                                       single)]
+        check(all(same), f"[13] gathered {name} differs from the single "
+                         f"kernel run: {dict(zip(single._fields, same))}")
+    say("[13] gathered round trip: claims, mask, banks and both GP states "
+        "bit-equal to phase 3's single-process run")
+
+    k = [r["kernel"] for r in ranks]
+    mean = lambda key, d: sum(sum(x[d][key]) / 2 for x in k) / len(k)
+    return {"launches_per_rank": ranks[0]["launches"] // TIMED_RUNS,
+            "ms": sum(mean("kernel_ms", d) for d in ("1", "3")),
+            "plain_ms": sum(mean("plain_ms", d) for d in ("1", "3")),
+            "bound_ms": sum(sum(x[d]["bound_ms"] for x in k) / len(k)
+                            for d in ("1", "3")),
+            "bound_by": k[0]["1"]["bound_by"]}
+
+
+def sharded_phase(comp, rmse, ccfg, kind, card) -> dict:
+    """Phase 13: the multi-device layer on the card. Two ranks share cuda:0
+    over gloo (the kernel is built already: the ranks load it), then one
+    rank runs under NCCL. Held to phase 3's single-process round trip
+    (`comp`, `rmse`)."""
+    import os
+    import shutil
+
+    t_phase = time.perf_counter()
+    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_sharded")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    B = ccfg.patch.max_patches
+
+    shard = hold_ranks(run_ranks(outdir, "gloo", SHARD_RANKS, True), outdir,
+                       comp, rmse, ccfg, card)
+
+    nccl = run_ranks(outdir, "nccl", 1, False)[0]
+    say(f"[13] one rank under {nccl['backend']}: rmse {nccl['rmse']!r}, "
+        f"walls {json.dumps(nccl['walls'])}")
+    check(nccl["backend"] == "nccl" and nccl["launches"] == 2 * TIMED_RUNS
+          and nccl["rows_match_front_end"] and nccl["local_rows"] == B
+          and nccl["rmse"] == rmse, f"[13] NCCL rank: {nccl}")
+    gathered = torch.load(f"{outdir}/round_trip.pt", weights_only=True)
+    check(all(bits_equal(a, b.cpu()) for name in ("depth_gp", "rgb_gp")
+              for a, b in zip(gathered[name], getattr(comp, name))),
+          "[13] the NCCL rank's states differ from the single run")
+    wall = time.perf_counter() - t_phase
+    say(f"[13] phase wall {wall:.2f} s on {kind} ({card})")
+    return shard
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2460,6 +2815,9 @@ def main() -> int:
     # ---- 12. the command line
     site = cli_phase(dev, kind, card)
 
+    # ---- 13. the multi-device layer: two ranks on the card, one on NCCL
+    shard = sharded_phase(comp, rmse, ccfg, kind, card)
+
     # one D=1 and one D=3 launch per round trip: ms and plain_ms are their sum
     kernels = [{
         "name": "sogp_train",
@@ -2481,6 +2839,15 @@ def main() -> int:
         "cli_plain_ms": sum(sum(site[d]["plain_ms"]) / 2 for d in (1, 3)),
         "cli_bound_ms": sum(site[d]["bound_us"] for d in (1, 3)) / 1e3,
         "cli_bound_by": site[1]["bound_by"],
+        # the sharded call site (phase 13: each of 2 ranks sharing the card
+        # trains its 1024 x 256 rows): launches per rank per round trip,
+        # ms per D=1 + D=3 launch pair (mean over the ranks, launched at
+        # once), the plain version's, and the bound at B = 1024
+        "sharded_launches": shard["launches_per_rank"],
+        "sharded_ms": shard["ms"],
+        "sharded_plain_ms": shard["plain_ms"],
+        "sharded_bound_ms": shard["bound_ms"],
+        "sharded_bound_by": shard["bound_by"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -2597,6 +2964,9 @@ def probe(sections) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(sys.argv[2], sys.argv[3],
+                              sys.argv[4] == "full"))
     if sys.argv[1:2] == ["--probe"]:
         sys.exit(probe(set(sys.argv[2:]) or {"f64_pairs", "arbitrate"}))
     sys.exit(main())

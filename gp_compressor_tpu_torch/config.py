@@ -2,8 +2,7 @@
 
 Field for field the dataclasses of `gp_compressor_tpu.config` (names,
 defaults and meaning; the comments there explain each constant). Only
-`dtype` differs: it is a `torch.dtype`. The SMC and mesh configs arrive
-with the slices that use them.
+`dtype` differs: it is a `torch.dtype`.
 """
 
 from __future__ import annotations
@@ -142,6 +141,17 @@ class SMCConfig:
     ess_threshold: float = 0.5
     pose_proposal_std_t: float = 0.01
     pose_proposal_std_r: float = 0.005
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout. Patch axis shards over `data`; chains/particles
+    over `chain`."""
+
+    data_axis: str = "data"
+    chain_axis: str = "chain"
+    data_size: Optional[int] = None   # None => all ranks on the data axis
+    chain_size: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

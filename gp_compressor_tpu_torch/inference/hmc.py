@@ -11,6 +11,12 @@ and the chains of the sampler are one batch dim). The ascents and the
 sampler are Python loops over steps that never read the device: each step
 is queued on the stream. The sampler's randomness is a `torch.Generator`
 (seed 0 when None) or the draws themselves (`HMCDraws`).
+
+With `mesh=` (a (data, chain) `DeviceMesh`, see `parallel.mesh`) the
+multi-start ascent and the chains are cut over `chain`: each rank runs its
+own starts or chains and the results are all-gathered in chain order. The
+draws are made whole on every rank and then cut, so a sharded run draws
+what a single run draws.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from gp_compressor_tpu_torch.inference.nuts import (_generator, _safe_vag,
                                                     dual_average)
 from gp_compressor_tpu_torch.ops import linalg_f32
 from gp_compressor_tpu_torch.ops.kernels import sqdist
+from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
 
 
 def gp_marginal_loglik(theta: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
@@ -144,19 +151,26 @@ MAP_START_OFFSETS = ((0.0, 0.0, 0.0), (-3.0, -3.0, -2.0),
 
 def map_estimate_multi(logpost: Callable, theta0: torch.Tensor,
                        steps: int = 150, lr: float = 0.1,
-                       n_starts: int = 4, theta_init=None):
+                       n_starts: int = 4, theta_init=None, mesh=None):
     """Multi-start MAP: the Adam ascent from `n_starts` log-space offsets
     of theta0, run as one batch dimension, keeping the best final log
-    posterior. theta_init: optional warm start replacing the first offset.
-    Returns (best theta [3], final logposts [n_starts])."""
+    posterior (ties to the lower start). theta_init: optional warm start
+    replacing the first offset. mesh: the starts are cut over `chain`, the
+    final thetas and log posteriors all-gathered, so every rank picks the
+    same theta. Returns (best theta [3], final logposts [n_starts])."""
     offs = torch.tensor(MAP_START_OFFSETS[:n_starts], dtype=theta0.dtype)
     starts = theta0[None, :] + offs.to(theta0.device)
     if theta_init is not None:
         starts = torch.cat([torch.as_tensor(theta_init).to(starts)[None],
                             starts[1:]])
+    if mesh is not None:
+        starts = mesh_lib.shard_leading(starts, mesh, n_starts, "chain")
     thetas, _ = _ascend(_safe_vag(logpost), starts, steps, lr)
     with torch.no_grad():
         lps = logpost(thetas)
+    if mesh is not None:
+        thetas, lps = mesh_lib.gather_leading((thetas, lps), mesh, n_starts,
+                                              "chain")
     best = torch.argmax(torch.where(torch.isfinite(lps), lps,
                                     torch.full_like(lps, -torch.inf)))
     # a 1-element index keeps the choice on the device
@@ -190,6 +204,16 @@ class HMCDraws(NamedTuple):
     u: torch.Tensor            # [C, T] uniforms of the accept test
 
 
+def draw_hmc(C: int, T: int, dim: int, dtype, device,
+             generator: Optional[torch.Generator] = None) -> HMCDraws:
+    """The draws of C chains over T steps from `generator` (seed 0 when
+    None)."""
+    g = _generator(generator, device)
+    return HMCDraws(
+        torch.randn((C, T, dim), generator=g, dtype=dtype, device=device),
+        torch.rand((C, T), generator=g, dtype=dtype, device=device))
+
+
 def _leapfrog(logpost, theta, p, grad, eps, inv_mass, n_steps):
     """n_steps leapfrogs of step eps [C]. Returns (theta, p, sanitized
     grad, the raw logpost value at the last point)."""
@@ -220,10 +244,7 @@ def hmc_warmup_and_sample(logpost: Callable, theta0: torch.Tensor,
     dt, dev = theta0.dtype, theta0.device
     T = cfg.num_warmup + cfg.num_samples
     if draws is None:
-        g = _generator(generator, dev)
-        draws = HMCDraws(
-            torch.randn((C, T, dim), generator=g, dtype=dt, device=dev),
-            torch.rand((C, T), generator=g, dtype=dt, device=dev))
+        draws = draw_hmc(C, T, dim, dt, dev, generator)
     lp0, g0 = _safe_vag(logpost)(theta0)
     eps0 = torch.full((C,), cfg.init_step_size, dtype=dt, device=dev)
     zero = torch.zeros((C,), dtype=dt, device=dev)
@@ -266,11 +287,22 @@ def hmc_warmup_and_sample(logpost: Callable, theta0: torch.Tensor,
 def hmc_sample_chains(logpost: Callable, theta0: torch.Tensor,
                       cfg: HMCConfig, n_leapfrog: int = 16,
                       generator: Optional[torch.Generator] = None,
-                      draws: Optional[HMCDraws] = None):
+                      draws: Optional[HMCDraws] = None, mesh=None):
     """theta0 [C, dim] -> (samples [C, num_samples, dim], mean accept [C],
-    step size [C]); the chains are one batch dim of every step."""
-    return hmc_warmup_and_sample(logpost, theta0, cfg, n_leapfrog,
-                                 generator=generator, draws=draws)
+    step size [C]); the chains are one batch dim of every step. mesh: the
+    chains (and their whole draws) are cut over `chain` and the results
+    all-gathered in chain order."""
+    if mesh is None:
+        return hmc_warmup_and_sample(logpost, theta0, cfg, n_leapfrog,
+                                     generator=generator, draws=draws)
+    C, dim = theta0.shape
+    if draws is None:
+        draws = draw_hmc(C, cfg.num_warmup + cfg.num_samples, dim,
+                         theta0.dtype, theta0.device, generator)
+    theta0, draws = mesh_lib.shard_leading((theta0, draws), mesh, C, "chain")
+    out = hmc_warmup_and_sample(logpost, theta0, cfg, n_leapfrog,
+                                draws=draws)
+    return mesh_lib.gather_leading(out, mesh, C, "chain")
 
 
 # ---------------------------------------------------------------------------

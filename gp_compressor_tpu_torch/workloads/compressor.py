@@ -16,6 +16,17 @@ depth GP's (sigma_f^2, l^2, s20) by multi-start MAP on a subsample of the
 banks and trains with the result; the calibrated values stay device
 tensors from the ascent to the kernel's hyperparameter row, so a new
 calibration reads nothing back to the host.
+
+With `mesh=` (a (data, chain) `DeviceMesh`, see `parallel.mesh`) the
+entry points run as one rank of an SPMD program: every rank runs the front
+end on the whole cloud (XLA leaves JAX's global sorts and segment sums the
+same way), keeps its rows of the patch banks, trains them with the kernel
+on its [B / n_data, P] shard (no collective inside, the hyperparameter row
+whole), sanitizes and decompresses locally. The returned cloud holds this
+rank's rows of the patch-banked leaves and of both `SOGPState`s; the grid,
+the claims and `n_leaves` stay whole. `gather_cloud` gives back the whole
+cloud, `shard_cloud` cuts one. The global sums are one all-reduce over the
+data group, and the MAP starts are cut over `chain`.
 """
 
 from __future__ import annotations
@@ -32,6 +43,12 @@ from gp_compressor_tpu_torch.geometry import patches as patches_mod
 from gp_compressor_tpu_torch.models import sparse_gp
 from gp_compressor_tpu_torch.models.sparse_gp import SOGPState
 from gp_compressor_tpu_torch.ops.kernels import RBFParams
+from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
+
+# the patch-banked leaves of a PatchBatch, the ones a mesh cuts (JAX's
+# compressor._constrain_batch); grid, claims and n_leaves stay whole
+BANK_LEAVES = ("rotations", "means", "rgb_means", "W", "X", "y", "rgb",
+               "mask", "counts")
 
 
 class CompressedCloud(NamedTuple):
@@ -62,6 +79,34 @@ def project(points: torch.Tensor, colors: torch.Tensor, valid: torch.Tensor,
     return patches_mod.build_patches(points, colors, valid, cfg.patch,
                                      generator=generator,
                                      shuffle_bits=shuffle_bits)
+
+
+def shard_batch(batch: patches_mod.PatchBatch,
+                mesh) -> patches_mod.PatchBatch:
+    """This rank's rows of the patch-banked leaves of a whole batch."""
+    B = batch.mask.shape[0]
+    return batch._replace(**{k: mesh_lib.shard_leading(
+        getattr(batch, k), mesh, B) for k in BANK_LEAVES})
+
+
+def shard_cloud(comp: CompressedCloud, mesh) -> CompressedCloud:
+    """This rank's rows of a whole compressed cloud (its banks and both
+    GP states), as the entry points return it under a mesh."""
+    B = comp.patch.mask.shape[0]
+    return CompressedCloud(shard_batch(comp.patch, mesh),
+                           mesh_lib.shard_leading(comp.depth_gp, mesh, B),
+                           mesh_lib.shard_leading(comp.rgb_gp, mesh, B))
+
+
+def gather_cloud(comp: CompressedCloud, mesh) -> CompressedCloud:
+    """The whole compressed cloud from every rank's rows (all-gathers
+    over the data group; every rank gets it), for tests, checkpoints and
+    the command line."""
+    B = comp.patch.mask.shape[0] * mesh_lib.axis_size(mesh, "data")
+    g = lambda t: mesh_lib.gather_leading(t, mesh, B)
+    patch = comp.patch._replace(**{k: g(getattr(comp.patch, k))
+                                   for k in BANK_LEAVES})
+    return CompressedCloud(patch, g(comp.depth_gp), g(comp.rgb_gp))
 
 
 def _shuffle_source(points, cfg: CompressorConfig, generator, shuffle_bits):
@@ -128,7 +173,7 @@ def train(batch: patches_mod.PatchBatch, cfg: CompressorConfig,
           rgb_kp: Optional[RBFParams] = None,
           use_kernel: Optional[bool] = None,
           depth_s20=None, depth_eps=None, full_probes: bool = False,
-          geom=None, perm=None) -> CompressedCloud:
+          geom=None, perm=None, mesh=None) -> CompressedCloud:
     """train_processes equivalent (src/gp_compressor.cpp:121-175): feed each
     patch's banked points into its depth GP and RGB field GP, then sanitize.
 
@@ -138,7 +183,14 @@ def train(batch: patches_mod.PatchBatch, cfg: CompressorConfig,
     the geometric novelty mode. use_kernel: see train_gp. perm: optional
     (depth, rgb) per-patch permutations [B, P] of the bank rows, the
     insertion order of banks that were not shuffled at bank time (see
-    bank_permutations); the returned cloud keeps the unpermuted banks."""
+    bank_permutations); the returned cloud keeps the unpermuted banks.
+    mesh: optional (data, chain) mesh; the batch and perm are whole, and
+    this rank trains and returns its rows of them (see the module
+    docstring)."""
+    if mesh is not None:
+        B = batch.mask.shape[0]
+        batch = shard_batch(batch, mesh)
+        perm = mesh_lib.shard_leading(perm, mesh, B)
     dkp, ckp = default_params(cfg, batch.X.device)
     depth_kp = depth_kp if depth_kp is not None else dkp
     rgb_kp = rgb_kp if rgb_kp is not None else ckp
@@ -166,11 +218,13 @@ def train(batch: patches_mod.PatchBatch, cfg: CompressorConfig,
 
 def decompress(comp: CompressedCloud, cfg: CompressorConfig,
                depth_kp: Optional[RBFParams] = None,
-               rgb_kp: Optional[RBFParams] = None, depth_s20=None):
+               rgb_kp: Optional[RBFParams] = None, depth_s20=None,
+               mesh=None):
     """load_compressed equivalent (src/gp_compressor.cpp:267-386).
 
     Returns (points [B*G, 3], colors [B*G, 3] in 0..255, valid [B*G],
-    centers [B, 3], normals [B, 3], patch_ok [B])."""
+    centers [B, 3], normals [B, 3], patch_ok [B]). mesh: comp holds this
+    rank's rows (see the module docstring), and so do the outputs."""
     batch = comp.patch
     dkp, ckp = default_params(cfg, batch.X.device)
     depth_kp = depth_kp if depth_kp is not None else dkp
@@ -193,9 +247,11 @@ def decompress(comp: CompressedCloud, cfg: CompressorConfig,
     colors = torch.where(torch.isfinite(colors), colors, 255.0)
     colors = torch.clamp(colors, 0.0, 255.0)
 
-    # patches with an empty GP emit nothing
+    # patches with an empty GP emit nothing; ids are global under a mesh
+    first = 0 if mesh is None else mesh_lib.axis_index(mesh, "data") * B
     patch_ok = (sparse_gp.size(comp.depth_gp) > 0) & \
-        (torch.arange(B, device=batch.X.device) < batch.n_leaves)
+        (torch.arange(first, first + B, device=batch.X.device)
+         < batch.n_leaves)
     valid = patch_ok[:, None].expand(B, G)
     return (world.reshape(B * G, 3), colors.reshape(B * G, 3),
             valid.reshape(B * G), batch.means, batch.rotations[:, :, 0],
@@ -204,8 +260,11 @@ def decompress(comp: CompressedCloud, cfg: CompressorConfig,
 
 def reconstruction_rmse(comp: CompressedCloud, cfg: CompressorConfig,
                         depth_kp: Optional[RBFParams] = None,
-                        depth_s20=None) -> torch.Tensor:
-    """In-sample depth RMS over the actual projected points (0-dim)."""
+                        depth_s20=None, mesh=None) -> torch.Tensor:
+    """In-sample depth RMS over the actual projected points (0-dim).
+    mesh: comp holds this rank's rows; [sum err^2, sum mask] is
+    all-reduced over the data group as one tensor before the root, so
+    every rank returns the global value."""
     batch = comp.patch
     dkp, _ = default_params(cfg, batch.X.device)
     depth_kp = depth_kp if depth_kp is not None else dkp
@@ -214,32 +273,40 @@ def reconstruction_rmse(comp: CompressedCloud, cfg: CompressorConfig,
                                       batch.X)                       # [B,P,1]
     err2 = torch.sum(torch.where(batch.mask,
                                  (mean[..., 0] - batch.y[..., 0]) ** 2, 0.0))
-    n = torch.clamp(torch.sum(batch.mask), min=1)
-    return torch.sqrt(err2 / n)
+    n = torch.sum(batch.mask)
+    if mesh is not None:
+        err2, n = mesh_lib.all_reduce_sum(
+            torch.stack([err2, n.to(err2.dtype)]), mesh).unbind()
+    return torch.sqrt(err2 / torch.clamp(n, min=1))
 
 
 def compress(points, colors, valid, cfg: CompressorConfig,
              use_kernel: Optional[bool] = None, geom=None,
              generator: torch.Generator = None,
-             shuffle_bits: torch.Tensor = None) -> CompressedCloud:
+             shuffle_bits: torch.Tensor = None,
+             mesh=None) -> CompressedCloud:
     """Full save_compressed pipeline: project, then train. The `shuffle`
     bank order draws from `generator` (seed 0 when None) unless
-    shuffle_bits gives the draw."""
+    shuffle_bits gives the draw; under a mesh every rank draws the whole
+    [B, P] from its own generator, so the generators must agree. mesh: see
+    the module docstring."""
     generator = _shuffle_source(points, cfg, generator, shuffle_bits)
     batch = project(points, colors, valid, cfg, generator=generator,
                     shuffle_bits=shuffle_bits)
-    return train(batch, cfg, use_kernel=use_kernel, geom=geom)
+    return train(batch, cfg, use_kernel=use_kernel, geom=geom, mesh=mesh)
 
 
 def compress_decompress(points, colors, valid, cfg: CompressorConfig,
                         use_kernel: Optional[bool] = None, geom=None,
                         generator: torch.Generator = None,
-                        shuffle_bits: torch.Tensor = None):
+                        shuffle_bits: torch.Tensor = None, mesh=None):
     """save_compressed + load_compressed: the production round trip.
-    Returns (CompressedCloud, decompress outputs)."""
+    Returns (CompressedCloud, decompress outputs); under a mesh, this
+    rank's rows of both."""
     comp = compress(points, colors, valid, cfg, use_kernel=use_kernel,
-                    geom=geom, generator=generator, shuffle_bits=shuffle_bits)
-    return comp, decompress(comp, cfg)
+                    geom=geom, generator=generator,
+                    shuffle_bits=shuffle_bits, mesh=mesh)
+    return comp, decompress(comp, cfg, mesh=mesh)
 
 
 def calib_subsample(batch: patches_mod.PatchBatch, n_patches: int,
@@ -300,7 +367,8 @@ def compress_decompress_calibrated(points, colors, valid,
                                    theta_init=None,
                                    calib_dtype: torch.dtype = torch.float32,
                                    generator: torch.Generator = None,
-                                   shuffle_bits: torch.Tensor = None):
+                                   shuffle_bits: torch.Tensor = None,
+                                   mesh=None):
     """The calibrated round trip: project -> multi-start MAP of the exact-GP
     marginal posterior over (sigma_f^2, l^2, s20) on a bank subsample ->
     sparse-GP training with the calibrated values -> grid decompression.
@@ -310,7 +378,10 @@ def compress_decompress_calibrated(points, colors, valid,
     tensors, so nothing is read back between stages. theta_init: optional
     warm start (the previous cloud's log theta) — pair with calib_steps ~40
     and calib_starts=1. calib_dtype: the dtype of the ascent (float32 on
-    the card; the tests pass float64).
+    the card; the tests pass float64). mesh: the subsample is taken from
+    the whole batch (its top-k over patch counts is global), the MAP
+    starts are cut over `chain` and every rank gets the same theta; then
+    as compress_decompress.
 
     Returns (CompressedCloud, depth RBFParams, s20 0-dim tensor,
     decompress outputs)."""
@@ -323,14 +394,15 @@ def compress_decompress_calibrated(points, colors, valid,
                                      calib_dtype)
     theta, _ = hmc.map_estimate_multi(logpost, theta0, steps=calib_steps,
                                       lr=calib_lr, n_starts=calib_starts,
-                                      theta_init=theta_init)
+                                      theta_init=theta_init, mesh=mesh)
     sf, l2, s20 = torch.exp(theta).to(batch.X.dtype).unbind()
     depth_kp = RBFParams(sigmaf_sq=sf, l_sq=l2)
     # keep the relative novelty floor: eps_tol's natural scale is sigmaf_sq
     eps_cal = cfg.depth_gp.eps_tol * sf / cfg.depth_gp.sigmaf_sq
     comp = train(batch, cfg, depth_kp=depth_kp, use_kernel=use_kernel,
-                 depth_s20=s20, depth_eps=eps_cal, full_probes=True)
-    out = decompress(comp, cfg, depth_kp=depth_kp, depth_s20=s20)
+                 depth_s20=s20, depth_eps=eps_cal, full_probes=True,
+                 mesh=mesh)
+    out = decompress(comp, cfg, depth_kp=depth_kp, depth_s20=s20, mesh=mesh)
     return comp, depth_kp, s20, out
 
 

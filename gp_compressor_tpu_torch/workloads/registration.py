@@ -14,6 +14,13 @@ once at entry, so the re-claim cadence is decided on the host; the stop
 test is the one device-to-host read of a step. Scatters route what JAX
 drops with `mode='drop'` (out-of-range indices) to a dump row that is
 sliced off.
+
+With `mesh=` (a (data, chain) `DeviceMesh`, see `parallel.mesh`) the map
+holds this rank's patch rows. The claims against the map are whole on
+every rank (tables, centers, frames), each rank banks only the points its
+rows claim, and a step's sums [twist (6), points used, likelihood, colour
+likelihood] are one all-reduce over the data group before the division:
+every rank then takes the same iRprop step and the same stop decision.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from gp_compressor_tpu_torch.geometry import transforms, voxel
 from gp_compressor_tpu_torch.geometry.patches import sort_by_claim
 from gp_compressor_tpu_torch.models import sparse_gp
 from gp_compressor_tpu_torch.ops.kernels import RBFParams
+from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
 from gp_compressor_tpu_torch.workloads.compressor import (CompressedCloud,
                                                          default_params)
 
@@ -348,13 +356,16 @@ def _map_claim_tables(comp: CompressedCloud, trained=None):
 
 
 def _claim_to_map(comp: CompressedCloud, points, valid,
-                  cfg: CompressorConfig, tables=None):
+                  cfg: CompressorConfig, tables=None, trained=None):
+    """trained: optional [B] claim candidates (default: the patches whose
+    depth GP is not empty)."""
     batch = comp.patch
     if tables is not None:
         return claim_with_tables(tables, batch.grid, points, valid,
                                  cfg.patch.res,
                                  out_fill=batch.rotations.shape[0])
-    trained = sparse_gp.size(comp.depth_gp) > 0
+    if trained is None:
+        trained = sparse_gp.size(comp.depth_gp) > 0
     return claim_to_patches(batch.grid, batch.rotations, batch.means,
                             trained, points, valid, cfg.patch.res)
 
@@ -436,14 +447,24 @@ def _blend_grads(rcfg: RegistrationConfig, dX, dCX, ll, cl):
     return a * dX + (1.0 - a) * dCX
 
 
-def _twist_mean(rotations, dX, pw, m):
+def _twist_mean(rotations, dX, pw, m, ll, cl, mesh=None):
     """Rotate local gradients to world and average the twist contribution
-    [g, x cross g] over the masked points: (delta [6], n_used)."""
+    [g, x cross g] and the likelihoods ll, cl over the masked points. The
+    sums [twist (6), n, sum ll, sum cl] are one tensor, all-reduced over
+    the mesh's data group when there is one, and divided after that.
+    Returns (delta [6], mean ll, mean cl, n points used)."""
     gw = torch.einsum('bij,bpj->bpi', rotations, dX)
     contrib = torch.cat([gw, torch.linalg.cross(pw, gw, dim=-1)], dim=-1)
-    n_used = torch.clamp(torch.sum(m), min=1)
-    return torch.sum(torch.where(m[..., None], contrib, 0.0),
-                     dim=(0, 1)) / n_used, n_used
+    n = torch.sum(m)
+    sums = torch.cat([torch.sum(torch.where(m[..., None], contrib, 0.0),
+                                dim=(0, 1)),
+                      torch.stack([n.to(contrib.dtype), torch.sum(ll),
+                                   torch.sum(cl)])])
+    if mesh is not None:
+        sums = mesh_lib.all_reduce_sum(sums, mesh)
+        n = sums[6].to(n.dtype)
+    n_used = torch.clamp(sums[6], min=1)
+    return sums[:6] / n_used, sums[7] / n_used, sums[8] / n_used, n
 
 
 def compute_transformation(comp: CompressedCloud, points, colors, valid,
@@ -474,20 +495,19 @@ def compute_transformation(comp: CompressedCloud, points, colors, valid,
     dX = _blend_grads(rcfg, dX, dCX, ll, cl)
     pw = torch.einsum('bij,bpj->bpi', batch.rotations, Xb) \
         + batch.means[:, None, :]
-    delta, n_used = _twist_mean(batch.rotations, dX, pw, Mb)
-    return delta, torch.sum(ll) / n_used, torch.sum(cl) / n_used, \
-        torch.sum(Mb)
+    return _twist_mean(batch.rotations, dX, pw, Mb, ll, cl)
 
 
 def _bank_step(comp: CompressedCloud, cfg: CompressorConfig,
                rcfg: RegistrationConfig, depth_kp, rgb_kp,
-               Wb, Cb, Mb, centers, depth_s20=None):
+               Wb, Cb, Mb, centers, depth_s20=None, mesh=None):
     """One gradient evaluation on pre-banked world points: local
     coordinates are re-derived from the banked positions (which ride the
     accumulated transform between re-claims) and the claiming patch's
     sphere and frame clip are re-applied as a mask. At a re-claim step this
-    is compute_transformation. Returns (delta [6], mean likelihood, mean
-    colour likelihood, n_used)."""
+    is compute_transformation. mesh: comp and the banks are this rank's
+    rows; the means are global (see _twist_mean). Returns (delta [6], mean
+    likelihood, mean colour likelihood, n_used)."""
     batch = comp.patch
     res = torch.tensor(cfg.patch.res, dtype=Wb.dtype)
     half = res / 2.0
@@ -507,9 +527,7 @@ def _bank_step(comp: CompressedCloud, cfg: CompressorConfig,
     dCX, cl = _density_grads_closed(rgb_kp, cfg.rgb_gp.s20, comp.rgb_gp,
                                     Xb, Cb, m, zero_y=True)
     dX = _blend_grads(rcfg, dX, dCX, ll, cl)
-    delta, n_used = _twist_mean(batch.rotations, dX, Wb, m)
-    return delta, torch.sum(ll) / n_used, torch.sum(cl) / n_used, \
-        torch.sum(m)
+    return _twist_mean(batch.rotations, dX, Wb, m, ll, cl, mesh)
 
 
 def register(comp: CompressedCloud, scan_points, scan_colors, scan_valid,
@@ -517,7 +535,7 @@ def register(comp: CompressedCloud, scan_points, scan_colors, scan_valid,
              rcfg: RegistrationConfig = RegistrationConfig(),
              init: RegistrationState = None,
              depth_kp: RBFParams = None, depth_s20=None,
-             tables: ClaimTables = None):
+             tables: ClaimTables = None, mesh=None):
     """The registration loop: gradient steps until registration_done
     (more than min_steps, and max_steps reached or converged).
 
@@ -529,27 +547,47 @@ def register(comp: CompressedCloud, scan_points, scan_colors, scan_valid,
     init: a state to resume from; its pose is applied with t_exact.
 
     The loop runs on the host: the step counter is read once at entry and
-    each step reads back one flag, its stop test. Returns (state,
-    transformed scan points)."""
+    each step reads back one flag, its stop test.
+
+    mesh: comp is this rank's rows of the map, as the compressor's entry
+    points return it under a mesh (`compressor.shard_cloud` cuts a whole
+    one); the scan is whole. The frames and the trained flags are gathered
+    once at entry for the claims, which every rank computes whole; each
+    step is one all-reduce (see the module docstring). Returns (state,
+    transformed scan points), the same on every rank."""
     dt, dev = scan_points.dtype, scan_points.device
     state = init if init is not None else init_state(dt, dev)
     step = int(state.step_nbr)
     # the t_exact recursion continues from state.t_exact, so the points
     # iterated are the ones (R_cloud, t_exact) produces
     pts = transforms.apply(scan_points, state.R_cloud, state.t_exact)
-    if tables is None:
-        tables = _map_claim_tables(comp)
     batch = comp.patch
-    B = batch.rotations.shape[0]
+    B = batch.rotations.shape[0]           # this rank's patch rows
+    # the map the claims run against: the whole one, on every rank
+    claim_map, trained, first = comp, None, 0
+    if mesh is not None:
+        Bw = B * mesh_lib.axis_size(mesh, "data")
+        first = mesh_lib.axis_index(mesh, "data") * B
+        rotations, means, trained = mesh_lib.gather_leading(
+            (batch.rotations, batch.means,
+             sparse_gp.size(comp.depth_gp) > 0), mesh, Bw)
+        claim_map = comp._replace(patch=batch._replace(rotations=rotations,
+                                                       means=means))
+    if tables is None:
+        tables = _map_claim_tables(claim_map, trained)
     # bank_points caps the per-patch registration bank
     P = rcfg.bank_points or cfg.patch.max_points_per_patch
-    centers = voxel.voxel_centers(batch.grid)[:B]
+    centers = voxel.voxel_centers(batch.grid)[first:first + B]
     dkp, ckp = default_params(cfg, dev)
     dkp = dkp if depth_kp is None else depth_kp
 
     def rebank(p):
-        claim, _, claimed = _claim_to_map(comp, p, scan_valid, cfg,
-                                          tables=tables)
+        claim, _, claimed = _claim_to_map(claim_map, p, scan_valid, cfg,
+                                          tables=tables, trained=trained)
+        if mesh is not None:
+            # this rank's rows only, as local patch ids
+            claimed = claimed & (claim >= first) & (claim < first + B)
+            claim = claim - first
         Wb, Cb, Mb = _bank_points(claim, p, scan_colors, claimed, B, P)
         Cb = torch.where(Mb[..., None], Cb - batch.rgb_means[:, None, :], 0.0)
         return Wb, Cb, Mb
@@ -575,7 +613,8 @@ def register(comp: CompressedCloud, scan_points, scan_colors, scan_valid,
         if k % rcfg.reclaim_every == 0:
             Wb, Cb, Mb = rebank(pts)
         delta, ls, cls, _ = _bank_step(comp, cfg, rcfg, dkp, ckp, Wb, Cb, Mb,
-                                       centers, depth_s20=depth_s20)
+                                       centers, depth_s20=depth_s20,
+                                       mesh=mesh)
         if rcfg.step_mode == "rprop":
             # iRprop-: per-axis motion eta * sign(delta), grow 1.2x while
             # the sign holds, halve and skip the axis on a flip; an axis

@@ -122,14 +122,16 @@ def test_sanitize_counts_diverged_patches():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports, and one small CLI run goes
-    through (the commands import their modules lazily), with neither jax
-    nor the JAX package in sys.modules afterwards."""
+    """Every module of the port (parallel/ included) imports, and one
+    small CLI run goes through (the commands import their modules lazily),
+    with neither jax nor the JAX package in sys.modules afterwards."""
     code = ("import pkgutil, sys\n"
             "import gp_compressor_tpu_torch as pkg\n"
             "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
             "pkg.__name__ + '.')]\n"
             "assert 'gp_compressor_tpu_torch.cli' in mods, mods\n"
+            "assert {'gp_compressor_tpu_torch.parallel.' + m for m in "
+            "('mesh', 'distributed', 'shard_report')} <= set(mods), mods\n"
             "for m in mods:\n"
             "    __import__(m)\n"
             "from gp_compressor_tpu_torch import cli\n"

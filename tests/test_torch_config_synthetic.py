@@ -32,7 +32,8 @@ def _assert_same_fields(j, t):
 @pytest.mark.parametrize("make", ["GPConfig", "PatchConfig", "KSVDConfig",
                                   "CompressorConfig", "rgb_gp_config",
                                   "rgb_ksvd_config", "RegistrationConfig",
-                                  "HMCConfig", "MappingConfig", "SMCConfig"])
+                                  "HMCConfig", "MappingConfig", "SMCConfig",
+                                  "MeshConfig"])
 def test_config_defaults_match_jax(make):
     _assert_same_fields(getattr(jcfg, make)(), getattr(tcfg, make)())
 
