@@ -99,21 +99,30 @@ Phases, each of which must pass (any failure exits non-zero):
                subcommand's wall printed.
  13. sharded — the multi-device layer (`parallel/`): two ranks of a gloo
                group share cuda:0 (NCCL refuses two ranks on one card;
-               `--sharded-rank` starts each): compress_decompress on a
-               (2, 1) mesh at the bench configuration (1024 patches per
-               rank, 2 kernel launches per rank per round trip), the
-               gathered claims, banks and GP states bit-equal to phase 3's
-               single run, RMSE within 1e-6 relative, every rank's front
-               end equal by checksum; the kernel timed on each rank's
-               shard with both ranks launching (a shared card: not a
-               scaling number); the calibrated round trip (MAP in
-               float64) on (2, 1) and (1, 2) meshes with the calibrated
-               values bit-equal to the single run's, the float64 MAP
-               bit-equal on (2, 1) and within 1e-10 relative on (1, 2),
-               where the starts split; register under phase 7's motion
-               (equal steps, pose within 2e-6); shard_report's per-rank
-               layout and peak memory; then one rank under NCCL, held to
-               phase 3 exactly.
+               `--sharded-rank` starts each), each with its block of the
+               cloud's points (150,000): compress_decompress on a (2, 1)
+               mesh at the bench configuration (the point-sharded front
+               end, 1024 patches per rank, 2 kernel launches per rank per
+               round trip), the gathered claims equal to phase 3's (0
+               differ), 0 patch rows whose banks differ, both GP states
+               bit-equal to phase 3's, RMSE within 1e-6 relative, every rank's grid equal by checksum, each rank's
+               walls by stage; the front end of room_cloud seeds 0-3
+               against the single process's (claims and bank rows that
+               differ, printed, beside one process against itself); the
+               kernel timed on each rank's shard with both ranks
+               launching (a shared card: not a scaling number); the
+               calibrated round trip (MAP in float64) on (2, 1) and
+               (1, 2) meshes with the calibrated values bit-equal to the
+               single run's, the float64 MAP bit-equal on (2, 1) and
+               within 1e-10 relative on (1, 2), where the starts split;
+               register under phase 7's motion (equal steps, pose within
+               2e-6); shard_report's point rows, layout (every leaf cut)
+               and peak memory by stage; with a card per rank (as
+               shard_probe.py runs them), each rank's front end under
+               torch.profiler (spans per step and collective, each host
+               sync by the port's function and op); then one rank under NCCL (its block
+               the whole cloud), its RMSE, claims, banks and states
+               bit-equal to phase 3's.
 
 The last three lines of standard output are the kernels' JSON object, the
 card's `nvidia-smi` name and power limit, and the result object.
@@ -617,6 +626,109 @@ def profile_summary(fn, best_wall) -> dict:
     }
     check(len(kernels) > 0, "the profiler saw no device kernel")
     return res
+
+
+# the front end's steps and collectives, each a span of front_end_trace
+# (module, function; nested spans are inclusive)
+TRACE_SPANS = (("patches", "claim_points"), ("voxel", "build_grid"),
+               ("patches", "sphere_moments"),
+               ("rotation", "rotation_from_moment_batch"),
+               ("patches", "_owner_banks"), ("patches", "_fill_banks"),
+               ("mesh", "all_reduce_min"), ("mesh", "all_reduce_max"),
+               ("mesh", "all_reduce_sum"), ("mesh", "all_gather_rows"),
+               ("mesh", "all_gather_varlen"), ("mesh", "all_to_all_rows"))
+# CUDA calls that can hold the host: a copy from or to pageable memory
+# waits for its stream to reach it
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
+
+
+def front_end_trace(fn) -> dict:
+    """fn() (one front end) once under torch.profiler with Python stacks
+    and a span around each of TRACE_SPANS (wrapped for this call only):
+    the traced wall; per span its calls, inclusive host ms and kernel
+    launches; each CUDA call that can hold the host (SYNC_CALLS) by the
+    port's function (or else the innermost span) that made it, the op and
+    the call (count, ms held), where a wait is the device's
+    queue and, after a collective, the other ranks' lag; and the NCCL
+    kernels' count and device ms."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gp_compressor_tpu_torch.geometry import patches, rotation, voxel
+    from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
+
+    mods = {"patches": patches, "voxel": voxel, "rotation": rotation,
+            "mesh": mesh_lib}
+
+    def span(name, f):
+        def wrapped(*a, **k):
+            with record_function(f"span:{name}"):
+                return f(*a, **k)
+        return wrapped
+
+    saved = [(mods[m], name, getattr(mods[m], name))
+             for m, name in TRACE_SPANS]
+    for mod, name, f in saved:
+        setattr(mod, name, span(name, f))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     with_stack=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    cpu_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU]
+    rng = lambda e: (e.time_range.start, e.time_range.end)
+    # by time alone: the CUDA runtime's events may carry another thread id
+    # than the ops that made them, and the front end runs on one thread
+    inside = lambda a, b: rng(b)[0] <= rng(a)[0] and rng(a)[1] <= rng(b)[1]
+    dur = lambda e: rng(e)[1] - rng(e)[0]
+    launches = [e for e in cpu_ev if e.name in LAUNCH_CALLS]
+    spans = {}
+    for e in cpu_ev:
+        if e.name.startswith("span:"):
+            n, ms, k = spans.get(e.name[5:], (0, 0.0, 0))
+            spans[e.name[5:]] = (n + 1, ms + dur(e) / 1e3,
+                                 k + sum(inside(x, e) for x in launches))
+    # a sync's site: the innermost port function around it (the profiler's
+    # Python events, "file(first line): name", where this torch records
+    # them), else the innermost span; and the outermost op
+    python = [e for e in cpu_ev if ".py(" in e.name
+              and "gp_compressor_tpu_torch/" in e.name]
+    marks = [e for e in cpu_ev if e.name.startswith("span:")]
+    ops = [e for e in cpu_ev if e.name.startswith("aten::")]
+    syncs = {}
+    for e in cpu_ev:
+        if e.name not in SYNC_CALLS:
+            continue
+        fns = sorted((x for x in python if inside(e, x)), key=dur) or \
+            sorted((x for x in marks if inside(e, x)), key=dur)
+        site = fns[0].name if fns else "(outside the spans)"
+        outer = [x for x in ops if inside(e, x)]
+        op = max(outer, key=dur).name if outer else ""
+        site = site.split("gp_compressor_tpu_torch/")[-1]
+        key = f"{site.removeprefix('span:')} {op} {e.name}"
+        n, ms = syncs.get(key, (0, 0.0))
+        syncs[key] = (n + 1, ms + dur(e) / 1e3)
+    nccl = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name.lower().startswith("nccl")]
+    return {"traced_wall_ms": wall * 1e3,
+            "launches": len(launches),
+            "spans": {k: [n, ms, k_] for k, (n, ms, k_) in spans.items()},
+            "syncs": {k: [n, ms] for k, (n, ms) in sorted(
+                syncs.items(), key=lambda kv: -kv[1][1])},
+            "sync_ms": sum(v[1] for v in syncs.values()),
+            "nccl_kernels": [len(nccl), sum(
+                (e.time_range.end - e.time_range.start) for e in nccl) / 1e3]}
 
 
 def synced(fn, out: dict, name: str):
@@ -2234,6 +2346,17 @@ def cli_phase(dev, kind, card):
 
 
 SHARD_RANKS = 2           # phase 13: ranks sharing cuda:0 over gloo
+FRONT_END_SEEDS = (0, 1, 2, 3)   # room_cloud seeds of the front-end check
+# what the sharded round trip measured per rank while every rank still ran
+# the front end on the whole cloud (NVIDIA H100 80GB HBM3, 700.00 W): the
+# calibrated round trip's peak (MB) by number of ranks, and the round trip's
+# wall (ms) on a card per rank of 4
+REPLICATED_PEAK_MB = {2: 743, 4: 688}
+REPLICATED_WALL_MS = (26.8, 44.0)
+# the leaves a front end's check compares: exact ones, then the float ones
+# whose float64 sums the ranks add up in another order
+FRONT_END_EXACT = ("claims", "counts", "W", "mask")
+FRONT_END_FLOAT = ("rotations", "means", "rgb_means", "X", "y", "rgb")
 
 
 def bits_equal(a, b) -> bool:
@@ -2242,23 +2365,77 @@ def bits_equal(a, b) -> bool:
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
-def front_end_digest(batch) -> str:
-    """sha256 of the front end's claims, n_leaves, means and rotations."""
+def row_bits_equal(a, b) -> torch.Tensor:
+    """[B] bool: row b of a and of b are equal bit for bit."""
+    u = a.reshape(a.shape[0], -1).contiguous()
+    v = b.reshape(b.shape[0], -1).contiguous()
+    if u.dtype.itemsize > 1:
+        u, v = u.view(torch.uint8), v.view(torch.uint8)
+    return (u == v).all(1)
+
+
+def grid_digest(grid) -> str:
+    """sha256 of a voxel grid's leaf keys, count, bounds and dense table."""
     import hashlib
     h = hashlib.sha256()
-    for t in (batch.claims, batch.n_leaves, batch.means, batch.rotations):
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    for t in grid:
+        if t is not None:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()
+
+
+def front_end_diff(got: dict, want: dict) -> dict:
+    """How two whole front ends (dicts of FRONT_END_* leaves on the CPU)
+    differ: claims that differ, exact leaves equal, and per float leaf the
+    patch rows that differ and the largest difference."""
+    out = {"claims_differ": int((got["claims"] != want["claims"]).sum())}
+    out.update({f"{k}_equal": torch.equal(got[k], want[k])
+                for k in FRONT_END_EXACT[1:]})
+    rows = torch.zeros(want["mask"].shape[0], dtype=torch.bool)
+    for k in FRONT_END_FLOAT:
+        eq = row_bits_equal(got[k], want[k])
+        rows |= ~eq
+        out[f"{k}_rows_differ"] = int((~eq).sum())
+        out[f"{k}_max_abs"] = float((got[k].double()
+                                     - want[k].double()).abs().max())
+    out["rows_differ"] = int(rows.sum())
+    return out
+
+
+def front_end_leaves(batch) -> dict:
+    return {k: getattr(batch, k).cpu()
+            for k in FRONT_END_EXACT + FRONT_END_FLOAT}
+
+
+def single_front_ends(ccfg, dev) -> dict:
+    """The single process's front end on room_cloud seeds FRONT_END_SEEDS,
+    run twice each (the float64 atomics of its sums may reorder between
+    runs: the second run says how far one process differs from itself)."""
+    from gp_compressor_tpu_torch.utils import synthetic
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    out = {}
+    for seed in FRONT_END_SEEDS:
+        p, c = (torch.from_numpy(a).to(dev)
+                for a in synthetic.room_cloud(n=N_POINTS, seed=seed))
+        v = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+        first = front_end_leaves(compressor.project(p, c, v, ccfg))
+        again = front_end_leaves(compressor.project(p, c, v, ccfg))
+        out[seed] = (first, front_end_diff(again, first))
+    return out
 
 
 def sharded_rank(outdir: str, backend: str, full: bool) -> int:
     """One rank of phase 13 (or of shard_probe.py), started by run_ranks
     with torchrun's variables on cuda:{LOCAL_RANK % device_count}, in a
-    `backend` group of WORLD_SIZE ranks: the round trip on a (world, 1)
-    mesh and the ranks' front-end checksums; with `full`, also the kernel
-    on this rank's rows, the calibrated round trip on (world, 1) and
-    (1, world) meshes, register and shard_report. Prints one JSON line;
-    rank 0 saves the gathered round trip to outdir."""
+    `backend` group of WORLD_SIZE ranks. On a (world, 1) mesh: the round
+    trip from this rank's block of the cloud (only the block reaches the
+    card), its walls by stage, the front end again (the same rows, and the
+    same grid on every rank by checksum); with `full`, also the front end
+    of room_cloud seeds FRONT_END_SEEDS, the kernel on this rank's rows,
+    the calibrated round trip on (world, 1) and (1, world) meshes, register
+    and shard_report. Prints one JSON line; rank 0 saves the gathered round
+    trip and front ends to outdir."""
     import torch.distributed as dist
 
     from gp_compressor_tpu_torch.config import MeshConfig, RegistrationConfig
@@ -2281,17 +2458,26 @@ def sharded_rank(outdir: str, backend: str, full: bool) -> int:
            "device": str(dev), "card": torch.cuda.get_device_name(dev),
            "build_s": sogp_train.BUILD_INFO["seconds"]}
     ccfg = bench_config()
-    pts_np, cols_np = synthetic.room_cloud(n=N_POINTS, seed=0)
-    pts = torch.from_numpy(pts_np).to(dev)
-    cols = torch.from_numpy(cols_np).to(dev)
-    valid = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
     mesh = mesh_lib.make_mesh(MeshConfig(), "cuda")       # (world, 1)
+    rows = mesh_lib.point_rows(N_POINTS, mesh)
+    res["point_rows"] = [rows.start, rows.stop]
+
+    def cloud(seed):
+        p, c = synthetic.room_cloud(n=N_POINTS, seed=seed)
+        return (torch.from_numpy(p), torch.from_numpy(c),
+                torch.ones(N_POINTS, dtype=torch.bool))
+
+    def block(whole, m):
+        """This rank's block of a whole host cloud, on the card."""
+        return [t.to(dev) for t in compressor.shard_points(*whole, m)]
+
+    host = cloud(0)
+    blk = block(host, mesh)
     walls = {}
 
     # ---- the round trip: 1 warm-up, TIMED_RUNS timed, launches counted
     def round_trip():
-        comp, out = compressor.compress_decompress(pts, cols, valid, ccfg,
-                                                   mesh=mesh)
+        comp, out = compressor.compress_decompress(*blk, ccfg, mesh=mesh)
         torch.cuda.synchronize()
         return comp, out
 
@@ -2308,33 +2494,63 @@ def sharded_rank(outdir: str, backend: str, full: bool) -> int:
     res["rmse"] = float(compressor.reconstruction_rmse(comp, ccfg,
                                                        mesh=mesh))
     res["local_rows"] = int(comp.patch.mask.shape[0])
-    whole = compressor.gather_cloud(comp, mesh)
+    res["claim_rows"] = int(comp.patch.claims.shape[0])
     B, G = ccfg.patch.max_patches, ccfg.patch.sz ** 2
+    whole = compressor.gather_cloud(comp, mesh, n_points=N_POINTS)
     valid_out = mesh_lib.gather_leading(out[2], mesh, B * G)
     if rank == 0:
-        torch.save({"claims": whole.patch.claims.cpu(),
-                    "mask": whole.patch.mask.cpu(),
-                    "X": whole.patch.X.cpu(),
+        torch.save({**front_end_leaves(whole.patch),
                     "n_leaves": whole.patch.n_leaves.cpu(),
                     "valid": valid_out.cpu(),
                     "depth_gp": [t.cpu() for t in whole.depth_gp],
                     "rgb_gp": [t.cpu() for t in whole.rgb_gp]},
                    f"{outdir}/round_trip.pt")
+    del whole, valid_out
 
-    # ---- every rank's own front end: the same banks, bit for bit
-    batch = compressor.project(pts, cols, valid, ccfg)
+    # ---- walls by stage (TIMED_RUNS times, the ranks lined up first: a
+    # rank's first collective waits for the last rank to arrive), then the
+    # front end's rows again, bit for bit, and its replicated grid the same
+    # on every rank
+    walls["stages"] = {"front_end": [], "training": [], "decompress": []}
+    for _ in range(TIMED_RUNS):
+        dist.barrier()
+        stages = {}
+        batch = synced(lambda: compressor.project(*blk, ccfg, mesh=mesh),
+                       stages, "front_end")
+        staged = synced(lambda: compressor.train(batch, ccfg, mesh=mesh),
+                        stages, "training")
+        synced(lambda: compressor.decompress(staged, ccfg, mesh=mesh),
+               stages, "decompress")
+        for k, v in stages.items():
+            walls["stages"][k].append(v)
+    del staged
     digests = [None] * world
-    dist.all_gather_object(digests, front_end_digest(batch))
-    rows = mesh_lib.patch_rows(B, mesh)
+    dist.all_gather_object(digests, grid_digest(batch.grid))
     res["digests"] = digests
     res["rows_match_front_end"] = all(
-        bits_equal(getattr(comp.patch, k), getattr(batch, k)[rows])
-        for k in compressor.BANK_LEAVES) and bits_equal(comp.patch.claims,
-                                                        batch.claims)
+        bits_equal(getattr(comp.patch, k), getattr(batch, k))
+        for k in compressor.BANK_LEAVES + ("claims",))
     if not full:
         print(json.dumps({**res, "walls": walls}), flush=True)
         dist.destroy_process_group()
         return 0
+
+    # ---- with a card per rank: each rank's front end under the profiler,
+    # the ranks lined up first (not on a shared card: one card's queue
+    # would serve both ranks' traces)
+    if torch.cuda.device_count() >= world:
+        dist.barrier()
+        res["front_end_trace"] = front_end_trace(
+            lambda: compressor.project(*blk, ccfg, mesh=mesh))
+
+    # ---- the front end of more clouds, gathered for the parent's check
+    for seed in FRONT_END_SEEDS:
+        b = batch if seed == 0 else compressor.project(
+            *block(cloud(seed), mesh), ccfg, mesh=mesh)
+        g = compressor.gather_batch(b, mesh, n_points=N_POINTS)
+        if rank == 0:
+            torch.save(front_end_leaves(g), f"{outdir}/front_end_{seed}.pt")
+        del b, g
 
     # ---- the kernel on this rank's shard, both ranks launching at once
     lb = comp.patch
@@ -2360,16 +2576,20 @@ def sharded_rank(outdir: str, backend: str, full: bool) -> int:
                                 "bound_by": bound["bound_by"]}
     res["kernel"] = kern_res
 
-    # ---- the calibrated round trip (MAP in float64) on both meshes
+    # ---- the calibrated round trip (MAP in float64) on both meshes, each
+    # from its blocks (the (1, world) mesh's one data block is the whole
+    # cloud), against the single process on the whole cloud
     meshes = {"data": mesh,
               "chain": mesh_lib.make_mesh(MeshConfig(chain_size=world),
                                           "cuda")}
+    host_dev = [t.to(dev) for t in host]
     cal = {}
     # an untimed single run first, so no timed run carries the warm-up
     for name, m in [("warm-up", None), ("single", None), *meshes.items()]:
+        args = host_dev if m is None else block(host, m)
         t0 = time.perf_counter()
         c, kp, s20, _ = compressor.compress_decompress_calibrated(
-            pts, cols, valid, ccfg, calib_dtype=torch.float64, mesh=m)
+            *args, ccfg, calib_dtype=torch.float64, mesh=m)
         torch.cuda.synchronize()
         walls[f"calibrated_{name}"] = time.perf_counter() - t0
         cal[name] = (c, kp, s20)
@@ -2379,13 +2599,13 @@ def sharded_rank(outdir: str, backend: str, full: bool) -> int:
     res["calibrated_theta"] = th["single"].tolist()
     res["calibrated_equal"] = {k: bits_equal(th[k], th["single"])
                                for k in meshes}
-    # the float64 MAP itself: on (world, 1) every rank ascends all 4
-    # starts as the single run does; on (1, world) fewer each, and a
-    # start's gradient then differs in its last bits (the broadcast's
-    # backward reduces over the patches with a launch chosen by the
-    # number of outputs)
-    logpost, theta0 = compressor._calib_logpost(batch, ccfg, 32, 64,
-                                                torch.float64)
+    # the float64 MAP itself on the subsample gathered from the owners: on
+    # (world, 1) every rank ascends all 4 starts as the single run does;
+    # on (1, world) fewer each, and a start's gradient then differs in its
+    # last bits (the broadcast's backward reduces over the patches with a
+    # launch chosen by the number of outputs)
+    logpost, theta0 = compressor._calib_logpost(comp.patch, ccfg, 32, 64,
+                                                torch.float64, mesh=mesh)
     t64 = {k: hmc.map_estimate_multi(logpost, theta0, mesh=m)[0]
            for k, m in [("single", None), *meshes.items()]}
     res["map64_theta"] = t64["single"].tolist()
@@ -2395,17 +2615,19 @@ def sharded_rank(outdir: str, backend: str, full: bool) -> int:
                                   / t64["single"]).abs().max())
                         for k in meshes}
 
-    # ---- register the moved scan (phase 7's motion) on the calibrated map
+    # ---- register the moved scan (phase 7's motion) on the calibrated
+    # map; the scan is whole (registration cuts only the map)
     ang = torch.tensor(PERTURB_ANG, device=dev)
-    moved = transforms.apply(pts, transforms.euler_xyz(ang),
+    moved = transforms.apply(host_dev[0], transforms.euler_xyz(ang),
                              torch.tensor(PERTURB_T, device=dev))
     rcfg = RegistrationConfig(max_steps=80, step_mode="rprop")
     reg = {}
     for name, m in (("warm-up", None), ("single", None), ("data", mesh)):
         c, kp, s20 = cal[name if m is not None else "single"]
         t0 = time.perf_counter()
-        st, _ = registration.register(c, moved, cols, valid, ccfg, rcfg,
-                                      depth_kp=kp, depth_s20=s20, mesh=m)
+        st, _ = registration.register(c, moved, host_dev[1], host_dev[2],
+                                      ccfg, rcfg, depth_kp=kp,
+                                      depth_s20=s20, mesh=m)
         torch.cuda.synchronize()
         walls[f"register_{name}"] = time.perf_counter() - t0
         reg[name] = st
@@ -2416,6 +2638,7 @@ def sharded_rank(outdir: str, backend: str, full: bool) -> int:
                                     - reg["single"].R_cloud).abs().max()),
                              float((reg["data"].t_cloud
                                     - reg["single"].t_cloud).abs().max()))}
+    del cal, reg, moved, host_dev
 
     t0 = time.perf_counter()
     res["shard_report"] = shard_report(ccfg, N_POINTS, mesh, rcfg=rcfg,
@@ -2457,35 +2680,73 @@ def run_ranks(outdir, backend: str, n: int, full: bool) -> list:
     return [json.loads(out.strip().splitlines()[-1]) for _, out, _ in ranks]
 
 
-def hold_ranks(ranks, outdir, comp, rmse, ccfg, card) -> dict:
+def hold_states(gathered, comp) -> int:
+    """Check that a gathered round trip's GP states equal the single
+    process's `comp` bit for bit on every patch row whose banks (X, y, rgb,
+    mask) are equal; returns the number of rows whose banks differ."""
+    same = torch.ones(comp.patch.mask.shape[0], dtype=torch.bool)
+    for k in ("X", "y", "rgb", "mask"):
+        same &= row_bits_equal(gathered[k], getattr(comp.patch, k).cpu())
+    for name in ("depth_gp", "rgb_gp"):
+        single = getattr(comp, name)
+        bad = [f for f, a, b in zip(single._fields, gathered[name], single)
+               if not bool(row_bits_equal(a[same], b.cpu()[same]).all())]
+        check(not bad, f"[13] gathered {name} differs from the single kernel "
+                       f"run on rows with equal banks: {bad}")
+    return int((~same).sum())
+
+
+def hold_ranks(ranks, outdir, comp, rmse, ccfg, card, single_fe) -> dict:
     """The checks of a full sharded run (run_ranks(..., full=True))
-    against the single-process round trip `comp`, `rmse`: every rank's
-    line printed, launches, checksums, RMSE, calibrated theta, register,
-    shard layout, and rank 0's gathered round trip bit-equal to `comp`.
+    against the single-process round trip `comp`, `rmse` and front ends
+    `single_fe` (single_front_ends): every rank's line printed, its point
+    and patch rows, launches, checksums, RMSE, calibrated theta, register,
+    shard layout (every leaf cut, the points and claims too), the claims
+    that differ (held at 0 on the bench cloud, printed for every seed),
+    and rank 0's gathered states bit-equal to `comp` where the banks are.
     Returns the sharded kernel's line for the kernels object."""
     B = ccfg.patch.max_patches
     n = len(ranks)
-    gathered = torch.load(f"{outdir}/round_trip.pt", weights_only=True)
+    mb = lambda v: None if v is None else round(v / 1e6, 1)
     for r in ranks:
+        rep = r["shard_report"]
+        peaks = {k: [mb(v), mb(rep["stage_start_bytes"][k])]
+                 for k, v in rep["stage_peak_bytes"].items()}
+        cal, reg = rep["calibrated_pipeline"], rep["register"]
         say(f"[13] rank {r['rank']} of {r['world']} ({r['backend']}, "
-            f"{r['device']}, {r['card']}; nvidia-smi: {card}): walls (s) "
-            f"{json.dumps(r['walls'])}; kernel at B={r['local_rows']}: "
+            f"{r['device']}, {r['card']}; nvidia-smi: {card}): point rows "
+            f"{r['point_rows']} of {N_POINTS}, patch rows {r['local_rows']} "
+            f"of {B}; walls (s) {json.dumps(r['walls'])}; [peak, live at "
+            f"start] MB by stage {json.dumps(peaks)}, calibrated round trip "
+            f"{[mb(cal['peak_bytes']), mb(cal['start_bytes'])]}, register "
+            f"{[mb(reg['peak_bytes']), mb(reg['start_bytes'])]} (when "
+            f"every rank ran the front end on the whole cloud: calibrated "
+            f"{REPLICATED_PEAK_MB.get(n, REPLICATED_PEAK_MB)} MB per rank, "
+            f"round trip {REPLICATED_WALL_MS[0]}-{REPLICATED_WALL_MS[1]} ms "
+            f"per rank of 4); kernel at B={r['local_rows']}: "
             f"{json.dumps(r['kernel'])}; rmse {r['rmse']!r}; launches "
             f"{r['launches']} in {TIMED_RUNS} round trips; register "
             f"{json.dumps(r['register'])}; calibrated theta "
             f"{r['calibrated_theta']}, float64 MAP bit-equal "
             f"{json.dumps(r['map64_equal'])}, relative difference "
             f"{json.dumps(r['map64_rel'])}; shard report "
-            f"{json.dumps(r['shard_report'])}")
+            f"{json.dumps(rep)}")
+        if "front_end_trace" in r:
+            say(f"[13] rank {r['rank']}'s front end traced: "
+                f"{json.dumps(r['front_end_trace'])}")
+            check(r["front_end_trace"]["launches"] > 0,
+                  "[13] the profiler saw no launch in a rank's front end")
         check(r["build_s"] == 0.0, "[13] a rank rebuilt the kernel")
-        check(r["local_rows"] == B // n, "[13] rows per rank")
+        check(r["local_rows"] == B // n, "[13] patch rows per rank")
+        check(r["claim_rows"] == r["point_rows"][1] - r["point_rows"][0]
+              == -(-N_POINTS // n), "[13] point rows per rank")
         check(r["launches"] == 2 * TIMED_RUNS,
               f"[13] rank {r['rank']}: {r['launches']} kernel launches in "
               f"{TIMED_RUNS} round trips, expected {2 * TIMED_RUNS}")
         check(len(set(r["digests"])) == 1,
-              f"[13] the ranks' front ends differ: {r['digests']}")
+              f"[13] the ranks' grids differ: {r['digests']}")
         check(r["rows_match_front_end"],
-              "[13] a rank's banks are not its rows of its front end")
+              "[13] a rank's front end differs between two runs")
         check(abs(r["rmse"] - rmse) <= 1e-6 * rmse,
               f"[13] sharded rmse {r['rmse']} vs single {rmse}")
         # the calibrated values (float32, what training uses) bit-equal on
@@ -2501,29 +2762,37 @@ def hold_ranks(ranks, outdir, comp, rmse, ccfg, card) -> dict:
         check(steps[0] == steps[1] and steps[0] < 80
               and r["register"]["pose_max_diff"] <= 2e-6,
               f"[13] sharded register {r['register']}")
-        rep = r["shard_report"]["calibrated_pipeline"]
-        bad = {k: v for k, v in rep["leaves"].items()
-               if v["layout"] != ("whole" if k == "patch.claims"
-                                  else "partitioned")}
-        check(not bad, f"[13] shard report layout: {bad}")
+        bad = {k: v for k, v in rep["calibrated_pipeline"]["leaves"].items()
+               if v["layout"] != ("partitioned" if n > 1 else "whole")}
+        check(not bad, f"[13] shard report: whole on a rank: {bad}")
     check(len({r["rmse"] for r in ranks}) == 1
           and len({str(r["calibrated_theta"]) for r in ranks}) == 1,
           "[13] the ranks disagree on a reduced value")
 
+    # the front end of every seed against the single process's
+    for seed in FRONT_END_SEEDS:
+        single, itself = single_fe[seed]
+        d = front_end_diff(torch.load(f"{outdir}/front_end_{seed}.pt",
+                                      weights_only=True), single)
+        say(f"[13] front end of room_cloud seed {seed}, {n} ranks against "
+            f"one process: {json.dumps(d)}; one process against itself: "
+            f"{json.dumps(itself)}")
+        check(all(d[f"{k}_equal"] for k in FRONT_END_EXACT[1:])
+              or d["claims_differ"] > 0,
+              f"[13] seed {seed}: equal claims but other banks or masks")
     # the gathered round trip against phase 3's single-process run
-    check(torch.equal(gathered["claims"], comp.patch.claims.cpu())
-          and torch.equal(gathered["mask"], comp.patch.mask.cpu())
-          and bits_equal(gathered["X"], comp.patch.X.cpu())
+    gathered = torch.load(f"{outdir}/round_trip.pt", weights_only=True)
+    flips = int((gathered["claims"] != comp.patch.claims.cpu()).sum())
+    check(flips == 0, f"[13] {flips} claims differ from phase 3's")
+    check(torch.equal(gathered["mask"], comp.patch.mask.cpu())
           and int(gathered["n_leaves"]) == int(comp.patch.n_leaves),
-          "[13] gathered claims / banks differ from phase 3's")
-    for name in ("depth_gp", "rgb_gp"):
-        single = getattr(comp, name)
-        same = [bits_equal(a, b.cpu()) for a, b in zip(gathered[name],
-                                                       single)]
-        check(all(same), f"[13] gathered {name} differs from the single "
-                         f"kernel run: {dict(zip(single._fields, same))}")
-    say("[13] gathered round trip: claims, mask, banks and both GP states "
-        "bit-equal to phase 3's single-process run")
+          "[13] gathered masks or n_leaves differ from phase 3's")
+    rows = hold_states(gathered, comp)
+    say(f"[13] gathered round trip: claims equal to phase 3's; {rows} patch "
+        f"rows' banks differ; both GP states bit-equal to the single "
+        f"process's on every row whose banks are")
+    check(rows == 0, f"[13] {rows} patch rows' banks differ from phase 3's "
+                     f"on the bench cloud")
 
     k = [r["kernel"] for r in ranks]
     mean = lambda key, d: sum(sum(x[d][key]) / 2 for x in k) / len(k)
@@ -2535,11 +2804,11 @@ def hold_ranks(ranks, outdir, comp, rmse, ccfg, card) -> dict:
             "bound_by": k[0]["1"]["bound_by"]}
 
 
-def sharded_phase(comp, rmse, ccfg, kind, card) -> dict:
+def sharded_phase(comp, rmse, ccfg, dev, kind, card) -> dict:
     """Phase 13: the multi-device layer on the card. Two ranks share cuda:0
     over gloo (the kernel is built already: the ranks load it), then one
     rank runs under NCCL. Held to phase 3's single-process round trip
-    (`comp`, `rmse`)."""
+    (`comp`, `rmse`) and to the single process's front ends."""
     import os
     import shutil
 
@@ -2550,9 +2819,12 @@ def sharded_phase(comp, rmse, ccfg, kind, card) -> dict:
     os.makedirs(outdir)
     B = ccfg.patch.max_patches
 
+    single_fe = single_front_ends(ccfg, dev)
     shard = hold_ranks(run_ranks(outdir, "gloo", SHARD_RANKS, True), outdir,
-                       comp, rmse, ccfg, card)
+                       comp, rmse, ccfg, card, single_fe)
 
+    # one rank: its block is the whole cloud, routed to itself, so its
+    # round trip is one process's bit for bit
     nccl = run_ranks(outdir, "nccl", 1, False)[0]
     say(f"[13] one rank under {nccl['backend']}: rmse {nccl['rmse']!r}, "
         f"walls {json.dumps(nccl['walls'])}")
@@ -2560,9 +2832,14 @@ def sharded_phase(comp, rmse, ccfg, kind, card) -> dict:
           and nccl["rows_match_front_end"] and nccl["local_rows"] == B
           and nccl["rmse"] == rmse, f"[13] NCCL rank: {nccl}")
     gathered = torch.load(f"{outdir}/round_trip.pt", weights_only=True)
+    check(all(bits_equal(gathered[k], getattr(comp.patch, k).cpu())
+              for k in ("claims", "mask", "X", "y", "rgb")),
+          "[13] the NCCL rank's claims or banks differ from phase 3's")
     check(all(bits_equal(a, b.cpu()) for name in ("depth_gp", "rgb_gp")
               for a, b in zip(gathered[name], getattr(comp, name))),
           "[13] the NCCL rank's states differ from the single run")
+    say("[13] one NCCL rank: rmse, claims, banks and both GP states "
+        "bit-equal to phase 3's")
     wall = time.perf_counter() - t_phase
     say(f"[13] phase wall {wall:.2f} s on {kind} ({card})")
     return shard
@@ -2816,7 +3093,7 @@ def main() -> int:
     site = cli_phase(dev, kind, card)
 
     # ---- 13. the multi-device layer: two ranks on the card, one on NCCL
-    shard = sharded_phase(comp, rmse, ccfg, kind, card)
+    shard = sharded_phase(comp, rmse, ccfg, dev, kind, card)
 
     # one D=1 and one D=3 launch per round trip: ms and plain_ms are their sum
     kernels = [{

@@ -9,6 +9,13 @@ The port of the main-path part of `gp_compressor_tpu.geometry.patches`:
   3. scatter  — sort the per-point payload by (claim, bank rank) and
      scatter it into capacity-padded [max_patches, max_points] banks.
 
+With `mesh=` (a (data, chain) `DeviceMesh`, see `parallel.mesh`) the
+points are this rank's block of the cloud: the grid and the plane fits are
+the whole cloud's on every rank (their bounds, leaf keys and moments are
+collectives over the data group), the claims are per point and stay
+local, and each claimed point is routed to the rank that owns its patch
+row, which sorts, counts and banks the points of its rows alone.
+
 Scatter indices are never left out of range: what JAX drops with
 `mode='drop'` goes to an extra dump row here, which is sliced off. The
 `shuffle` bank order takes its random source explicitly: a
@@ -28,6 +35,7 @@ import torch
 from gp_compressor_tpu_torch.config import PatchConfig
 from gp_compressor_tpu_torch.geometry import rotation, voxel
 from gp_compressor_tpu_torch.geometry.voxel import VoxelGrid
+from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
 
 
 class PatchBatch(NamedTuple):
@@ -212,7 +220,7 @@ def grid_cell(uv: torch.Tensor, res, sz: int) -> torch.Tensor:
 
 
 def sphere_moments(grid: VoxelGrid, points: torch.Tensor, valid: torch.Tensor,
-                   cfg: PatchConfig):
+                   cfg: PatchConfig, mesh=None):
     """Per-leaf 4x4 homogeneous second moments over each leaf's search-
     sphere support. Returns (M [B, 4, 4] float64, counts [B] int32).
 
@@ -220,7 +228,12 @@ def sphere_moments(grid: VoxelGrid, points: torch.Tensor, valid: torch.Tensor,
     entries with the plane signal at patch-variance scale, so the small
     eigenpair amplifies summation rounding ~1e3x, and CUDA atomics change
     the order of the sums from run to run. cfg.approx_sphere_moments
-    switches to the octant-resolution single-scatter approximation."""
+    switches to the octant-resolution single-scatter approximation.
+
+    mesh: points is this rank's block; the per-(leaf, octant) sums (per
+    leaf on the exact path) are all-reduced over the data group, so every
+    rank holds the whole cloud's moments, summed in another order than
+    one process sums them."""
     B = grid.keys.shape[0]
     dt = points.dtype
     dev = points.device
@@ -239,6 +252,8 @@ def sphere_moments(grid: VoxelGrid, points: torch.Tensor, valid: torch.Tensor,
                   + (frac[:, 2] >= 0.5).to(torch.int32))
         seg = torch.where(exists & valid, idx * 8 + oct_id, B * 8)
         Mv8 = _segment_sum(hh, seg, B * 8 + 1)[:B * 8].reshape(B, 8, 10)
+        if mesh is not None:
+            Mv8 = mesh_lib.all_reduce_sum(Mv8, mesh)
 
         # octant o of the neighbour at offset d is in the sphere iff
         # |d + c_o| <= sqrt(3)/2 (_APPROX_SEL)
@@ -263,23 +278,30 @@ def sphere_moments(grid: VoxelGrid, points: torch.Tensor, valid: torch.Tensor,
             M = M + _segment_sum(hh, seg, B + 1)[:B]
             sphere_counts = sphere_counts + _segment_sum(
                 ok.to(torch.int32), seg, B + 1)[:B]
+        if mesh is not None:
+            M = mesh_lib.all_reduce_sum(M, mesh)
+            sphere_counts = mesh_lib.all_reduce_sum(sphere_counts, mesh)
         M = _sym10_to_44(M)
     return M, sphere_counts
 
 
-def claim_points(points: torch.Tensor, valid: torch.Tensor, cfg: PatchConfig):
+def claim_points(points: torch.Tensor, valid: torch.Tensor, cfg: PatchConfig,
+                 mesh=None):
     """Passes 1+2: plane fits and first-claim.
 
     Returns (grid, R [B,3,3], centers_all [B,3], claim [N], loc_claim [N,3],
-    claimed [N])."""
+    claimed [N]). mesh: points is this rank's block; the grid, R and the
+    centers are the whole cloud's (build_grid, sphere_moments), and the
+    claims, each a function of its point and of those, are this block's."""
     B = cfg.max_patches
     dt = points.dtype
     dev = points.device
     N = points.shape[0]
 
-    grid = voxel.build_grid(points, valid, cfg.res, B, cfg.max_cells)
+    grid = voxel.build_grid(points, valid, cfg.res, B, cfg.max_cells,
+                            mesh=mesh)
     res = grid.res
-    M, sphere_counts = sphere_moments(grid, points, valid, cfg)
+    M, sphere_counts = sphere_moments(grid, points, valid, cfg, mesh=mesh)
     R = rotation.rotation_from_moment_batch(
         M, sphere_counts, cfg.min_points_for_rotation).to(dt)
 
@@ -331,7 +353,8 @@ def claim_points(points: torch.Tensor, valid: torch.Tensor, cfg: PatchConfig):
 def build_patches(points: torch.Tensor, colors: torch.Tensor,
                   valid: torch.Tensor, cfg: PatchConfig,
                   generator: torch.Generator = None,
-                  shuffle_bits: torch.Tensor = None) -> PatchBatch:
+                  shuffle_bits: torch.Tensor = None,
+                  mesh=None) -> PatchBatch:
     """points: [N, 3], colors: [N, 3] (0..255 floats), valid: [N] bool.
 
     Deterministic bank orders fill the banks in the scatter form: each
@@ -340,21 +363,67 @@ def build_patches(points: torch.Tensor, colors: torch.Tensor,
     random source (`generator`, or `shuffle_bits` [B, P] int64 in
     [0, 2^32)), each patch's points land in a uniformly random order
     through the gather form; without one the banks keep the native order,
-    as the JAX package's build_patches does without a key."""
-    B, P, sz = cfg.max_patches, cfg.max_points_per_patch, cfg.sz
-    dt = points.dtype
-    dev = points.device
-    N = points.shape[0]
-    grid, R, centers_all, claim, loc_claim, claimed = claim_points(
-        points, valid, cfg)
-    res = grid.res
+    as the JAX package's build_patches does without a key.
 
-    rank = bank_rank(loc_claim, cfg.bank_order, claim=claim,
-                     claimed=claimed, n_segments=B)
+    mesh: points, colors and valid are this rank's block of the cloud
+    (parallel.mesh point_rows, padded rows invalid). The result holds the
+    rank's rows (patch_rows) of the patch-banked leaves, its block's
+    claims, and the whole grid and n_leaves; the random source is whole
+    ([B, P], the same on every rank) and each rank uses its rows."""
+    B, P = cfg.max_patches, cfg.max_points_per_patch
+    grid, R, centers_all, claim, loc_claim, claimed = claim_points(
+        points, valid, cfg, mesh=mesh)
     if cfg.bank_order != "shuffle":
         shuffle_bits = None
     elif shuffle_bits is None and generator is not None:
-        shuffle_bits = draw_shuffle_bits(B, P, dev, generator)
+        shuffle_bits = draw_shuffle_bits(B, P, points.device, generator)
+    if mesh is None:
+        banks = _fill_banks(claim, claimed, loc_claim, colors, R,
+                            centers_all, grid.res, cfg, shuffle_bits)
+    else:
+        banks = _owner_banks(claim, claimed, loc_claim, colors, R,
+                             centers_all, grid.res, cfg, shuffle_bits, mesh)
+    return PatchBatch(grid=grid, n_leaves=grid.n_leaves,
+                      claims=torch.where(claimed, claim, -1).to(torch.int32),
+                      **banks)
+
+
+def _owner_banks(claim, claimed, loc_claim, colors, R, centers, res,
+                 cfg: PatchConfig, shuffle_bits, mesh) -> dict:
+    """The banks of this rank's patch rows from every rank's claimed
+    points: each is sent to the owner of its patch row, which receives
+    them in the cloud's point order (the blocks are contiguous and in
+    order), so its stable claim sort, rank keys, counts, W and banks are
+    the single process's for those rows. Only the means differ in
+    rounding: their float64 sums run over the owner's points alone."""
+    rows = mesh_lib.patch_rows(R.shape[0], mesh)
+    sel = torch.nonzero(claimed).squeeze(1)
+    c = claim[sel]
+    dest = torch.div(c, rows.stop - rows.start, rounding_mode="floor")
+    loc, col, c = mesh_lib.all_to_all_rows(
+        (loc_claim[sel], colors[sel], c), dest, mesh)
+    # plus one unclaimed row (sorted last, in no window), so the gather
+    # form has a row to read on a rank that received no point
+    pad = lambda t: torch.cat([t, t.new_zeros((1,) + t.shape[1:])])
+    real = torch.ones(c.shape[0] + 1, dtype=torch.bool, device=c.device)
+    real[-1] = False
+    bits = None if shuffle_bits is None else shuffle_bits[rows]
+    return _fill_banks(pad(c - rows.start), real, pad(loc), pad(col),
+                       R[rows].clone(), centers[rows].clone(), res, cfg,
+                       bits)
+
+
+def _fill_banks(claim, claimed, loc_claim, colors, R, centers, res,
+                cfg: PatchConfig, shuffle_bits) -> dict:
+    """The patch-banked leaves of PatchBatch for B = R.shape[0] patches
+    from the points' claims (segment ids in [0, B)), local coordinates
+    and colours."""
+    B, P, sz = R.shape[0], cfg.max_points_per_patch, cfg.sz
+    dt = loc_claim.dtype
+    dev = loc_claim.device
+    N = claim.shape[0]
+    rank = bank_rank(loc_claim, cfg.bank_order, claim=claim,
+                     claimed=claimed, n_segments=B)
     (u_s, v_s, d_s, rgb_s), starts, segs = sort_by_claim(
         claim, claimed, (loc_claim[:, 1], loc_claim[:, 2], loc_claim[:, 0],
                          colors), B, rank=rank)
@@ -375,7 +444,7 @@ def build_patches(points: torch.Tensor, colors: torch.Tensor,
     mn = seg_sums[:, 0] / safe                                          # [B]
     c_mn = seg_sums[:, 1:] / safe[:, None]                              # [B,3]
 
-    means = centers_all + mn[:, None] * R[:, :, 0]   # center += mn * normal
+    means = centers + mn[:, None] * R[:, :, 0]       # center += mn * normal
 
     # W occupancy mask; unclaimed points go to a dump cell
     cell = grid_cell(loc_claim[:, 1:], res, sz)
@@ -383,6 +452,8 @@ def build_patches(points: torch.Tensor, colors: torch.Tensor,
     W = torch.zeros(B * sz * sz + 1, dtype=torch.bool, device=dev)
     W[wseg.long()] = True
     W = W[:B * sz * sz].reshape(B, sz * sz)
+    leaves = dict(rotations=R, means=means, rgb_means=c_mn, W=W,
+                  counts=counts_i)
 
     if shuffle_bits is not None:
         # gather form: slot (b, p) reads the window row of rank rk(b, p)
@@ -392,11 +463,7 @@ def build_patches(points: torch.Tensor, colors: torch.Tensor,
                          torch.stack([u_s[pos], v_s[pos]], dim=-1), 0.0)
         yb = torch.where(mb, d_s[pos] - mn[:, None], 0.0)[..., None]
         cb = torch.where(mb[..., None], rgb_s[pos] - c_mn[:, None, :], 0.0)
-        return PatchBatch(
-            grid=grid, rotations=R, means=means, rgb_means=c_mn, W=W,
-            X=Xb, y=yb, rgb=cb, mask=mb, counts=counts_i,
-            claims=torch.where(claimed, claim, -1).to(torch.int32),
-            n_leaves=grid.n_leaves)
+        return dict(leaves, X=Xb, y=yb, rgb=cb, mask=mb)
 
     # banks: ONE [N, 6] scatter from the sorted payload (row i of segment
     # b lands at slot (b, i - starts[b])); rows past P and unclaimed rows
@@ -414,12 +481,7 @@ def build_patches(points: torch.Tensor, colors: torch.Tensor,
                      (flat[:, 2].reshape(B, P) - mn[:, None])[..., None], 0.0)
     cb = torch.where(mb[..., None],
                      flat[:, 3:].reshape(B, P, 3) - c_mn[:, None, :], 0.0)
-
-    return PatchBatch(
-        grid=grid, rotations=R, means=means, rgb_means=c_mn, W=W,
-        X=Xb, y=yb, rgb=cb, mask=mb, counts=counts_i,
-        claims=torch.where(claimed, claim, -1).to(torch.int32),
-        n_leaves=grid.n_leaves)
+    return dict(leaves, X=Xb, y=yb, rgb=cb, mask=mb)
 
 
 class RasterBatch(NamedTuple):

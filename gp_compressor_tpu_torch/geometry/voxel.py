@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
+
 SQRT3_2 = 0.8660254037844386  # sqrt(3)/2
 
 # 27 neighbour offsets in lexicographic (dx, dy, dz) order
@@ -94,21 +96,37 @@ def delinearize(lin: torch.Tensor, dims: torch.Tensor) -> torch.Tensor:
 
 
 def build_grid(points: torch.Tensor, valid: torch.Tensor, res,
-               max_patches: int, max_cells: int = 0) -> VoxelGrid:
+               max_patches: int, max_cells: int = 0, mesh=None) -> VoxelGrid:
     """Construct the leaf table. points: [N, 3], valid: [N] bool.
     max_cells > 0 additionally builds the dense lookup table.
 
+    mesh: points is this rank's block of the cloud (parallel.mesh
+    point_rows); the bounds are all-reduced (min and max, exact) and the
+    leaf keys are the union of every rank's unique keys, all-gathered, so
+    the grid, its sorted leaf order and the dense table are the whole
+    cloud's on every rank.
+
     Host syncs: the dense-or-sorted choice reads the grid extents, and the
-    sorted form's `torch.unique` has a data-dependent size."""
+    sorted form's `torch.unique` has a data-dependent size (under a mesh,
+    each rank's unique keys too)."""
     dt, dev = points.dtype, points.device
     res = torch.as_tensor(res, dtype=dt, device=dev)
     big = torch.finfo(dt).max
     p_lo = torch.amin(torch.where(valid[:, None], points, big), dim=0)
     p_hi = torch.amax(torch.where(valid[:, None], points, -big), dim=0)
+    if mesh is not None:
+        p_lo = mesh_lib.all_reduce_min(p_lo, mesh)
+        p_hi = mesh_lib.all_reduce_max(p_hi, mesh)
     dims = torch.clamp(
         torch.floor((p_hi - p_lo) * (1.0 / res)).to(torch.int32) + 1, min=1)
     keys3 = point_keys(points, p_lo, res)
     lin = torch.where(valid, linearize(keys3, dims), FILL)
+    if mesh is not None:
+        # the same key set as the whole cloud's (FILL pads the shorter
+        # sets and marks invalid points alike): every use of lin below
+        # depends on that set only
+        lin = torch.unique(mesh_lib.all_gather_varlen(torch.unique(lin),
+                                                      mesh, FILL))
     slot = torch.arange(max_patches, device=dev, dtype=torch.int32)
 
     d0, d1, d2 = (int(v) for v in dims.tolist())

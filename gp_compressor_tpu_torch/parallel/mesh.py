@@ -9,13 +9,19 @@ the named dims (data, chain):
   * `data`  - the patch bank's leading axis is cut into contiguous row
     blocks, one per data coordinate; every per-patch op is local, and the
     global sums (RMSE, registration's twist) are one all-reduce over the
-    data group.
+    data group. The cloud's point axis is cut the same way (`point_rows`,
+    JAX's P('data') on the points): the front end's global results (the
+    grid's bounds and leaf keys, the sphere moments) are collectives over
+    the data group, and each point is routed to the rank that owns its
+    patch row (`all_to_all_rows`).
   * `chain` - independent MAP starts and HMC chains are cut the same way
     over the chain coordinate and all-gathered in chain order.
 
 Tensors that are not cut are whole on every rank (replicated). No DTensor:
 the front end is sorts, scatters and segment sums over points, which
 DTensor does not partition, and explicit shards say which rows a rank owns.
+Every collective here is over the group of one named axis (`data` by
+default), and every rank of that group must call it, in the same order.
 
 Name for name:
 
@@ -26,6 +32,8 @@ Name for name:
                                  over the joined process group
   patch_sharding(mesh)           patch_rows(B, mesh): the slice of the
                                  patch axis this rank owns
+  P('data') on the points        point_rows(N, mesh), point_block(t, mesh):
+                                 this rank's block of the padded point axis
   replicated(mesh)               data_group(mesh): a whole tensor needs no
                                  placement; this is the group its
                                  patch-axis sums all-reduce over
@@ -36,13 +44,18 @@ Name for name:
   constrain_leading(tree, ...)   shard_leading(tree, mesh, dim, axis)
                                  and its inverse gather_leading
   (psum inside jit)              all_reduce_sum(t, mesh, axis)
+  (GSPMD's min / max, unique     all_reduce_min / all_reduce_max,
+  and sort over a cut axis)      all_gather_varlen, all_to_all_rows
   =============================  ======================================
 
 A cut axis must divide evenly, as a JAX `NamedSharding` requires:
-`pad_to_multiple` gives the size to pad to.
+`pad_to_multiple` gives the size to pad to (`point_block` pads the point
+axis itself, with rows that the caller marks invalid).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -152,10 +165,91 @@ def shard_patch_batch(tree, mesh: DeviceMesh, data_axis: str = "data"):
                 if a.ndim >= 1 else a, tree)
 
 
+def _all_reduce(t: torch.Tensor, mesh: DeviceMesh, axis: str, op):
+    out = t.clone()
+    dist.all_reduce(out, op=op, group=mesh.get_group(axis))
+    return out
+
+
 def all_reduce_sum(t: torch.Tensor, mesh: DeviceMesh,
                    axis: str = "data") -> torch.Tensor:
     """The sum of t over the ranks along `axis`, as a new tensor: one
     collective, whatever t's size."""
-    out = t.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
+    return _all_reduce(t, mesh, axis, dist.ReduceOp.SUM)
+
+
+def all_reduce_min(t: torch.Tensor, mesh: DeviceMesh,
+                   axis: str = "data") -> torch.Tensor:
+    """The elementwise minimum of t over the ranks along `axis` (exact)."""
+    return _all_reduce(t, mesh, axis, dist.ReduceOp.MIN)
+
+
+def all_reduce_max(t: torch.Tensor, mesh: DeviceMesh,
+                   axis: str = "data") -> torch.Tensor:
+    """The elementwise maximum of t over the ranks along `axis` (exact)."""
+    return _all_reduce(t, mesh, axis, dist.ReduceOp.MAX)
+
+
+def point_rows(n: int, mesh: DeviceMesh, axis: str = "data") -> slice:
+    """The point-axis counterpart of patch_rows: this rank's contiguous
+    block [r * m, (r + 1) * m) of a point axis of n rows padded to
+    pad_to_multiple(n, k) = k * m, r its coordinate along `axis` (of size
+    k). Rows at or past n are padding."""
+    k = axis_size(mesh, axis)
+    per = pad_to_multiple(n, k) // k
+    i = axis_index(mesh, axis)
+    return slice(i * per, (i + 1) * per)
+
+
+def point_block(t: torch.Tensor, mesh: DeviceMesh, fill=0,
+                axis: str = "data") -> torch.Tensor:
+    """This rank's block of the leading (point) axis of a whole t, a
+    compact copy whose rows past t's end are `fill` (see point_rows)."""
+    rows = point_rows(t.shape[0], mesh, axis)
+    out = torch.full((rows.stop - rows.start,) + t.shape[1:], fill,
+                     dtype=t.dtype, device=t.device)
+    part = t[rows.start:min(rows.stop, t.shape[0])]
+    out[:part.shape[0]] = part
+    return out
+
+
+def all_gather_varlen(t: torch.Tensor, mesh: DeviceMesh, fill,
+                      axis: str = "data") -> torch.Tensor:
+    """Every rank's t (1-D, of any length) along `axis`, concatenated in
+    coordinate order, each padded with `fill` to the longest: one
+    all-reduce of the length, then one all-gather of [k * max] values."""
+    m = int(all_reduce_max(torch.tensor([t.shape[0]], device=t.device),
+                           mesh, axis))
+    padded = torch.full((m,), fill, dtype=t.dtype, device=t.device)
+    padded[:t.shape[0]] = t
+    return all_gather_rows(padded, mesh, axis)
+
+
+def all_to_all_rows(tensors, dest: torch.Tensor, mesh: DeviceMesh,
+                    axis: str = "data"):
+    """Route row i of every tensor in `tensors` (equal leading sizes) to
+    the rank whose coordinate along `axis` is dest[i]. Returns the rows
+    this rank receives, ordered by source coordinate and, within one
+    source, in the source's row order; so when the ranks hold contiguous
+    blocks of one axis in order, what a rank receives keeps that axis's
+    order. One exchange of the [k] counts, then one all_to_all_single of
+    every tensor's rows side by side as bytes (exact for any dtype)."""
+    group = mesh.get_group(axis)
+    k = axis_size(mesh, axis)
+    order = torch.argsort(dest, stable=True)
+    send = torch.bincount(dest.long(), minlength=k)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    in_splits, out_splits = send.tolist(), recv.tolist()
+    n = dest.shape[0]
+    cols = [t.reshape(n, math.prod(t.shape[1:])).contiguous().view(torch.uint8)
+            for t in tensors]
+    payload = torch.cat(cols, 1)[order]
+    got = payload.new_empty((sum(out_splits), payload.shape[1]))
+    dist.all_to_all_single(got, payload, out_splits, in_splits, group=group)
+    out, at = [], 0
+    for t, c in zip(tensors, cols):
+        part = got[:, at:at + c.shape[1]].contiguous().view(t.dtype)
+        out.append(part.reshape((got.shape[0],) + t.shape[1:]))
+        at += c.shape[1]
     return out

@@ -6,11 +6,13 @@
 
 `cases` joins the group from its arguments and runs the sharded entry
 points on (2, 2) and (4, 1) meshes of 4 ranks against the same calls
-without a mesh: the mesh layout, training, the global RMSE, chain-sharded
-HMC and MAP, the round trip, registration, the calibrated round trip and
-the shard report. Where OUTDIR holds `jax.npz` (the JAX package's runs on
-its 8-device CPU mesh, written by tests/test_torch_parallel.py), it also
-runs the port's sharded decompress, RMSE and register on JAX's states.
+without a mesh: the mesh layout, the all-to-all route, training, the
+global RMSE, chain-sharded HMC and MAP, the point-sharded front end (each
+rank projects its block of the cloud), the round trip (float32, and float64 beside JAX's),
+registration, the calibrated round trip and the shard report. Where
+OUTDIR holds `jax.npz` (the JAX package's runs on its 8-device CPU mesh,
+written by tests/test_torch_parallel.py), it also runs the port's
+sharded decompress, RMSE and register on JAX's states.
 `cluster` joins through `initialize()` from torchrun's environment
 variables and runs a sharded train-and-predict step whose RMSE reduction
 crosses the processes (the port of tests/distributed_worker.py).
@@ -49,16 +51,19 @@ F64 = torch.float64
 T = torch.from_numpy
 
 
-def pipe_config(max_patches: int = 128):
+def pipe_config(max_patches: int = 128, bank_order: str = "center_out",
+                approx: bool = True, dtype=torch.float32):
     """tests/test_parallel.py's PIPE_CFG (__graft_entry__.dryrun_multichip
-    takes it with 16 patches per data rank)."""
+    takes it with 16 patches per data rank); the other bank orders, exact
+    sphere moments and float64 GPs for the front-end and float64 cases."""
     return tcfg.CompressorConfig(
         patch=tcfg.PatchConfig(res=0.5, sz=8, max_patches=max_patches,
                                max_points_per_patch=128,
-                               approx_sphere_moments=True,
-                               bank_order="center_out"),
-        depth_gp=tcfg.GPConfig(capacity=20, slots=32, eps_tol=2.0),
-        rgb_gp=tcfg.rgb_gp_config(slots=32, capacity=20))
+                               approx_sphere_moments=approx,
+                               bank_order=bank_order),
+        depth_gp=tcfg.GPConfig(capacity=20, slots=32, eps_tol=2.0,
+                               dtype=dtype),
+        rgb_gp=tcfg.rgb_gp_config(slots=32, capacity=20, dtype=dtype))
 
 
 def train_case(B: int, n: int, seed: int):
@@ -135,6 +140,39 @@ def case_layout(meshes) -> dict:
         except ValueError as e:
             errors.append(str(e))
     res["errors"] = errors
+    return res
+
+
+def route_rows(rank: int, k: int):
+    """Rank `rank`'s rows for case_route: mixed dtypes and shapes, a
+    destination in [0, k) per row; rank 1 sends nothing."""
+    g = torch.Generator().manual_seed(rank)
+    n = 0 if rank == 1 else 5 + 3 * rank
+    rows = (torch.randn(n, 3, generator=g),
+            torch.randn(n, generator=g, dtype=F64),
+            torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=g,
+                          dtype=torch.int32),
+            torch.rand(n, 2, generator=g) > 0.5)
+    return rows, torch.randint(0, k, (n,), generator=g)
+
+
+def case_route(meshes) -> dict:
+    """all_to_all_rows against the rows every source sends this rank, in
+    source coordinate order and each source's row order."""
+    res = {}
+    for name, m in meshes.items():
+        k, i = mesh_lib.axis_size(m, "data"), mesh_lib.axis_index(m, "data")
+        group = dist.get_process_group_ranks(mesh_lib.data_group(m))
+        got = mesh_lib.all_to_all_rows(*route_rows(dist.get_rank(), k), m)
+        want = [[] for _ in got]
+        for src in group:
+            rows, dest = route_rows(src, k)
+            for w, t in zip(want, rows):
+                w.append(t[dest == i])
+        res[name] = {"received": int(got[0].shape[0]),
+                     "equal": all(a.dtype == b.dtype and torch.equal(a, b)
+                                  for a, b in zip(got, (torch.cat(w)
+                                                        for w in want)))}
     return res
 
 
@@ -215,15 +253,91 @@ def case_chains(meshes) -> dict:
     return res
 
 
-def cloud(n: int, seed: int):
+def cloud(n: int, seed: int, dtype=torch.float32):
     pts, cols = synthetic.room_cloud(n=n, seed=seed)
-    return T(pts), T(cols), torch.ones(n, dtype=torch.bool)
+    return (T(pts).to(dtype), T(cols).to(dtype),
+            torch.ones(n, dtype=torch.bool))
 
 
 def gathered_out(out, mesh, B: int, G: int):
     """The decompress outputs of every rank, whole."""
     return (mesh_lib.gather_leading(out[:3], mesh, B * G)
             + mesh_lib.gather_leading(out[3:], mesh, B))
+
+
+# not a multiple of 2 or 4: every mesh's last block ends in padding rows
+# (zeros, invalid), which the cloud, moved by FRONT_END_SHIFT, does not
+# reach: a padding row that counted would move the grid's bounds
+FRONT_END_POINTS = 4999
+FRONT_END_SHIFT = 5.0
+FRONT_END_VARIANTS = {"center_out": dict(bank_order="center_out"),
+                      "shuffle": dict(bank_order="shuffle"),
+                      "native_exact": dict(bank_order="native",
+                                           approx=False)}
+FLOAT_LEAVES = ("rotations", "means", "rgb_means", "X", "y", "rgb")
+
+
+def banked_ids(batch) -> torch.Tensor:
+    """[B, P] cloud row in each bank slot (-1 where empty) of a batch
+    projected with each point's row index as its first colour: the colour
+    bank holds the index less the patch's mean colour."""
+    ids = torch.round(batch.rgb[..., 0] + batch.rgb_means[:, None, 0])
+    return torch.where(batch.mask, ids.to(torch.int64), -1)
+
+
+def case_front_end(meshes) -> dict:
+    """compressor.project on each rank's block of a cloud whose size the
+    ranks do not divide, gathered, against project on the whole cloud:
+    the grid, claims, counts, W and mask exactly, the banked cloud rows
+    (a second projection with row indices as colours), and the float
+    leaves' largest differences and rows that differ at all."""
+    n = FRONT_END_POINTS
+    pts, cols, valid = cloud(n, 3)
+    pts = pts + FRONT_END_SHIFT
+    ids = torch.zeros_like(cols)
+    ids[:, 0] = torch.arange(n, dtype=cols.dtype)
+    res = {}
+    for variant, kw in FRONT_END_VARIANTS.items():
+        cfg = pipe_config(**kw)
+        gen = lambda: torch.Generator().manual_seed(11)
+        single = compressor.project(pts, cols, valid, cfg, generator=gen())
+        single_ids = banked_ids(compressor.project(pts, ids, valid, cfg,
+                                                   generator=gen()))
+        res[variant] = {}
+        for name, m in meshes.items():
+            blk = compressor.shard_points(pts, cols, valid, m)
+            local = compressor.project(*blk, cfg, generator=gen(), mesh=m)
+            got = compressor.gather_batch(local, m, n_points=n)
+            got_ids = banked_ids(compressor.gather_batch(compressor.project(
+                *compressor.shard_points(pts, ids, valid, m), cfg,
+                generator=gen(), mesh=m), m))
+            differ = torch.zeros(cfg.patch.max_patches, dtype=torch.bool)
+            for k in FLOAT_LEAVES:
+                a, b = getattr(got, k), getattr(single, k)
+                differ |= (a != b).reshape(a.shape[0], -1).any(1)
+            res[variant][name] = {
+                "local_rows": int(local.mask.shape[0]),
+                "claim_rows": int(local.claims.shape[0]),
+                "pad_rows": int((~blk[2]).sum()),
+                "pad_claims_unclaimed": bool((local.claims[~blk[2]]
+                                              == -1).all()),
+                "grid_equal": all(
+                    torch.equal(a, b) for a, b in zip(local.grid,
+                                                      single.grid)
+                    if a is not None),
+                "n_leaves": int(local.n_leaves),
+                "claims_differ": int((got.claims != single.claims).sum()),
+                **{f"{k}_equal": torch.equal(getattr(got, k),
+                                             getattr(single, k))
+                   for k in ("W", "mask", "counts")},
+                "ids_equal": torch.equal(got_ids, single_ids),
+                "banked": int(single.mask.sum()),
+                "max_diff": {k: max_diff([getattr(got, k)],
+                                         [getattr(single, k)])
+                             for k in FLOAT_LEAVES},
+                "rows_differ": int(differ.sum()),
+            }
+    return res
 
 
 def case_round_trip(meshes, jax_runs, arrays) -> dict:
@@ -234,13 +348,14 @@ def case_round_trip(meshes, jax_runs, arrays) -> dict:
     rmse1 = float(compressor.reconstruction_rmse(comp1, cfg))
     res = {"single_rmse": rmse1}
     for name, m in meshes.items():
-        comp, out = compressor.compress_decompress(pts, cols, valid, cfg,
-                                                   mesh=m)
+        comp, out = compressor.compress_decompress(
+            *compressor.shard_points(pts, cols, valid, m), cfg, mesh=m)
         rmse = float(compressor.reconstruction_rmse(comp, cfg, mesh=m))
-        whole = compressor.gather_cloud(comp, m)
+        whole = compressor.gather_cloud(comp, m, n_points=5000)
         out = gathered_out(out, m, B, G)
         res[name] = {
             "local_rows": int(comp.patch.mask.shape[0]),
+            "claim_rows": int(comp.patch.claims.shape[0]),
             "claims_equal": torch.equal(whole.patch.claims,
                                         comp1.patch.claims),
             "n_leaves_equal": int(whole.patch.n_leaves)
@@ -271,6 +386,22 @@ def case_round_trip(meshes, jax_runs, arrays) -> dict:
         arrays.update({"round_trip.jax_state.world": out[0],
                        "round_trip.jax_state.colors": out[1],
                        "round_trip.jax_state.valid": out[2]})
+    return res
+
+
+def case_round_trip64(meshes) -> dict:
+    """The round trip at PIPE_CFG with a float64 cloud and float64 GPs,
+    where training is reproducible across packages: the RMSE of the
+    single process and of each mesh (JAX's 8-device run is beside it in
+    jax.npz)."""
+    cfg = pipe_config(dtype=F64)
+    pts, cols, valid = cloud(5000, 3, F64)
+    comp = compressor.compress(pts, cols, valid, cfg)
+    res = {"single": float(compressor.reconstruction_rmse(comp, cfg))}
+    for name, m in meshes.items():
+        comp = compressor.compress(
+            *compressor.shard_points(pts, cols, valid, m), cfg, mesh=m)
+        res[name] = float(compressor.reconstruction_rmse(comp, cfg, mesh=m))
     return res
 
 
@@ -328,8 +459,10 @@ def case_calibrated(meshes, jax_runs) -> dict:
     scan = moved(pts)
 
     def run(mesh=None):
+        blk = (pts, cols, valid) if mesh is None else \
+            compressor.shard_points(pts, cols, valid, mesh)
         comp, kp, s20, _ = compressor.compress_decompress_calibrated(
-            pts, cols, valid, cfg, mesh=mesh, **kw)
+            *blk, cfg, mesh=mesh, **kw)
         rmse = float(compressor.reconstruction_rmse(
             comp, cfg, depth_kp=kp, depth_s20=s20, mesh=mesh))
         st, _ = registration.register(comp, scan, cols, valid, cfg, rcfg,
@@ -370,10 +503,13 @@ def scenario_cases(outdir: Path, init_method: str, rank: int,
     res = {"rank": dist.get_rank(), "world": dist.get_world_size(),
            "backend": dist.get_backend()}
     res["layout"] = case_layout(meshes)
+    res["route"] = case_route(meshes)
     res["train"] = case_train(meshes, arrays)
     res["rmse"] = case_rmse(meshes, arrays)
     res["chains"] = case_chains(meshes)
+    res["front_end"] = case_front_end(meshes)
     res["round_trip"] = case_round_trip(meshes, jax_runs, arrays)
+    res["round_trip64"] = case_round_trip64(meshes)
     res["register"] = case_register(meshes, jax_runs)
     res["calibrated"] = case_calibrated(meshes, jax_runs)
     res["shard_report"] = shard_report(

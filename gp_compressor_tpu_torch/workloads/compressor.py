@@ -18,15 +18,19 @@ tensors from the ascent to the kernel's hyperparameter row, so a new
 calibration reads nothing back to the host.
 
 With `mesh=` (a (data, chain) `DeviceMesh`, see `parallel.mesh`) the
-entry points run as one rank of an SPMD program: every rank runs the front
-end on the whole cloud (XLA leaves JAX's global sorts and segment sums the
-same way), keeps its rows of the patch banks, trains them with the kernel
-on its [B / n_data, P] shard (no collective inside, the hyperparameter row
-whole), sanitizes and decompresses locally. The returned cloud holds this
-rank's rows of the patch-banked leaves and of both `SOGPState`s; the grid,
-the claims and `n_leaves` stay whole. `gather_cloud` gives back the whole
-cloud, `shard_cloud` cuts one. The global sums are one all-reduce over the
-data group, and the MAP starts are cut over `chain`.
+entry points run as one rank of an SPMD program on this rank's block of
+the cloud (`shard_points` cuts one; JAX's P('data') on the points). The
+front end runs on the block and calls collectives only for what is global
+(the grid's bounds and leaf keys, the sphere moments), then routes each
+claimed point to the owner of its patch row (`patches.build_patches`), so
+no rank holds the whole point axis or the whole banks. Each rank trains
+its [B / n_data, P] rows with the kernel (no collective inside, the
+hyperparameter row whole), sanitizes and decompresses locally. The
+returned cloud holds this rank's rows of the patch-banked leaves and of
+both `SOGPState`s and its block's claims; the grid and `n_leaves` are
+whole. `gather_cloud` gives back the whole cloud, `shard_cloud` cuts one.
+The global sums are one all-reduce over the data group, and the MAP
+starts are cut over `chain`.
 """
 
 from __future__ import annotations
@@ -72,41 +76,69 @@ def default_params(cfg: CompressorConfig,
 
 def project(points: torch.Tensor, colors: torch.Tensor, valid: torch.Tensor,
             cfg: CompressorConfig, generator: torch.Generator = None,
-            shuffle_bits: torch.Tensor = None) -> patches_mod.PatchBatch:
+            shuffle_bits: torch.Tensor = None,
+            mesh=None) -> patches_mod.PatchBatch:
     """project_cloud equivalent (src/gp_compressor.cpp:177-249).
     generator / shuffle_bits: the `shuffle` bank order's random source
-    (see patches.build_patches); without one the banks keep native order."""
+    (see patches.build_patches); without one the banks keep native order.
+    mesh: points, colors and valid are this rank's block (shard_points),
+    and the batch holds this rank's patch rows (see the module
+    docstring)."""
     return patches_mod.build_patches(points, colors, valid, cfg.patch,
                                      generator=generator,
-                                     shuffle_bits=shuffle_bits)
+                                     shuffle_bits=shuffle_bits, mesh=mesh)
+
+
+def shard_points(points, colors, valid, mesh):
+    """This rank's block of a whole cloud, as the entry points take it
+    under a mesh: rows point_rows(N, mesh) of each, the padding rows past
+    N invalid (and zero)."""
+    return (mesh_lib.point_block(points, mesh),
+            mesh_lib.point_block(colors, mesh),
+            mesh_lib.point_block(valid, mesh, fill=False))
 
 
 def shard_batch(batch: patches_mod.PatchBatch,
                 mesh) -> patches_mod.PatchBatch:
-    """This rank's rows of the patch-banked leaves of a whole batch."""
+    """This rank's rows of the patch-banked leaves of a whole batch, and
+    its block of the claims."""
     B = batch.mask.shape[0]
-    return batch._replace(**{k: mesh_lib.shard_leading(
-        getattr(batch, k), mesh, B) for k in BANK_LEAVES})
+    return batch._replace(
+        claims=mesh_lib.point_block(batch.claims, mesh, fill=-1),
+        **{k: mesh_lib.shard_leading(getattr(batch, k), mesh, B)
+           for k in BANK_LEAVES})
 
 
 def shard_cloud(comp: CompressedCloud, mesh) -> CompressedCloud:
-    """This rank's rows of a whole compressed cloud (its banks and both
-    GP states), as the entry points return it under a mesh."""
+    """This rank's rows of a whole compressed cloud (its banks, both GP
+    states and its block of the claims), as the entry points return it
+    under a mesh."""
     B = comp.patch.mask.shape[0]
     return CompressedCloud(shard_batch(comp.patch, mesh),
                            mesh_lib.shard_leading(comp.depth_gp, mesh, B),
                            mesh_lib.shard_leading(comp.rgb_gp, mesh, B))
 
 
-def gather_cloud(comp: CompressedCloud, mesh) -> CompressedCloud:
-    """The whole compressed cloud from every rank's rows (all-gathers
-    over the data group; every rank gets it), for tests, checkpoints and
-    the command line."""
+def gather_batch(batch: patches_mod.PatchBatch, mesh,
+                 n_points: Optional[int] = None) -> patches_mod.PatchBatch:
+    """The whole batch from every rank's rows and blocks (all-gathers over
+    the data group; every rank gets it). n_points: the cloud's size, to
+    drop the claims of the padding rows (kept when None)."""
+    B = batch.mask.shape[0] * mesh_lib.axis_size(mesh, "data")
+    claims = mesh_lib.all_gather_rows(batch.claims, mesh)[:n_points]
+    return batch._replace(claims=claims, **{
+        k: mesh_lib.gather_leading(getattr(batch, k), mesh, B)
+        for k in BANK_LEAVES})
+
+
+def gather_cloud(comp: CompressedCloud, mesh,
+                 n_points: Optional[int] = None) -> CompressedCloud:
+    """The whole compressed cloud from every rank's rows and blocks (see
+    gather_batch), for tests, checkpoints and the command line."""
     B = comp.patch.mask.shape[0] * mesh_lib.axis_size(mesh, "data")
     g = lambda t: mesh_lib.gather_leading(t, mesh, B)
-    patch = comp.patch._replace(**{k: g(getattr(comp.patch, k))
-                                   for k in BANK_LEAVES})
-    return CompressedCloud(patch, g(comp.depth_gp), g(comp.rgb_gp))
+    return CompressedCloud(gather_batch(comp.patch, mesh, n_points),
+                           g(comp.depth_gp), g(comp.rgb_gp))
 
 
 def _shuffle_source(points, cfg: CompressorConfig, generator, shuffle_bits):
@@ -184,13 +216,14 @@ def train(batch: patches_mod.PatchBatch, cfg: CompressorConfig,
     (depth, rgb) per-patch permutations [B, P] of the bank rows, the
     insertion order of banks that were not shuffled at bank time (see
     bank_permutations); the returned cloud keeps the unpermuted banks.
-    mesh: optional (data, chain) mesh; the batch and perm are whole, and
-    this rank trains and returns its rows of them (see the module
-    docstring)."""
+    mesh: optional (data, chain) mesh; the batch and perm are this rank's
+    rows (as project(mesh=) returns them; shard_batch cuts a whole one),
+    trained as they are: training is per patch."""
     if mesh is not None:
-        B = batch.mask.shape[0]
-        batch = shard_batch(batch, mesh)
-        perm = mesh_lib.shard_leading(perm, mesh, B)
+        rows = cfg.patch.max_patches // mesh_lib.axis_size(mesh, "data")
+        if batch.mask.shape[0] != rows:
+            raise ValueError(f"train(mesh=) takes this rank's {rows} patch "
+                             f"rows, got {batch.mask.shape[0]}")
     dkp, ckp = default_params(cfg, batch.X.device)
     depth_kp = depth_kp if depth_kp is not None else dkp
     rgb_kp = rgb_kp if rgb_kp is not None else ckp
@@ -288,11 +321,12 @@ def compress(points, colors, valid, cfg: CompressorConfig,
     """Full save_compressed pipeline: project, then train. The `shuffle`
     bank order draws from `generator` (seed 0 when None) unless
     shuffle_bits gives the draw; under a mesh every rank draws the whole
-    [B, P] from its own generator, so the generators must agree. mesh: see
-    the module docstring."""
+    [B, P] from its own generator, so the generators must agree. mesh:
+    points, colors and valid are this rank's block (see the module
+    docstring)."""
     generator = _shuffle_source(points, cfg, generator, shuffle_bits)
     batch = project(points, colors, valid, cfg, generator=generator,
-                    shuffle_bits=shuffle_bits)
+                    shuffle_bits=shuffle_bits, mesh=mesh)
     return train(batch, cfg, use_kernel=use_kernel, geom=geom, mesh=mesh)
 
 
@@ -301,8 +335,8 @@ def compress_decompress(points, colors, valid, cfg: CompressorConfig,
                         generator: torch.Generator = None,
                         shuffle_bits: torch.Tensor = None, mesh=None):
     """save_compressed + load_compressed: the production round trip.
-    Returns (CompressedCloud, decompress outputs); under a mesh, this
-    rank's rows of both."""
+    Returns (CompressedCloud, decompress outputs); under a mesh (points,
+    colors and valid this rank's block), this rank's rows of both."""
     comp = compress(points, colors, valid, cfg, use_kernel=use_kernel,
                     geom=geom, generator=generator,
                     shuffle_bits=shuffle_bits, mesh=mesh)
@@ -310,18 +344,46 @@ def compress_decompress(points, colors, valid, cfg: CompressorConfig,
 
 
 def calib_subsample(batch: patches_mod.PatchBatch, n_patches: int,
-                    n_points: int):
+                    n_points: int, mesh=None):
     """A dense, spatially stratified calibration subsample of the banks:
     the n_patches patches with the most valid points (ties to the lower
     index, as lax.top_k), each one's valid points compacted to the front
     and strided (idx_j = floor(j * count / n)) when it has more than n, so
     that any bank order covers the patch's span.
-    Returns (X [n_patches, n, 2], y [n_patches, n], mask [n_patches, n])."""
+    Returns (X [n_patches, n, 2], y [n_patches, n], mask [n_patches, n]).
+
+    mesh: the batch holds this rank's patch rows; the per-patch counts are
+    all-gathered (the top-k is global), each rank takes the subsample of
+    the chosen rows it owns, and those [n_patches, n] rows are gathered
+    from their owners, so every rank returns the whole subsample."""
     counts = torch.sum(batch.mask, dim=1)
+    if mesh is not None:
+        return _calib_subsample_owned(batch, counts, n_patches, n_points,
+                                      mesh)
     top = torch.argsort(counts, descending=True, stable=True)[:n_patches]
-    Xb = batch.X[top]
-    yb = batch.y[top, :, 0]
-    mb = batch.mask[top]
+    return _subsample_rows(batch.X[top], batch.y[top, :, 0],
+                           batch.mask[top], n_points)
+
+
+def _calib_subsample_owned(batch, counts, n_patches, n_points, mesh):
+    per = counts.shape[0]
+    whole = mesh_lib.all_gather_rows(counts, mesh)
+    top = torch.argsort(whole, descending=True, stable=True)[:n_patches]
+    owner = torch.div(top, per, rounding_mode="floor")
+    local = torch.where(owner == mesh_lib.axis_index(mesh, "data"),
+                        top - owner * per, 0)
+    X, y, m = _subsample_rows(batch.X[local], batch.y[local, :, 0],
+                              batch.mask[local], n_points)
+    # [ranks, n_patches, n, 4]: the chosen row i comes from rank owner[i]
+    parts = mesh_lib.all_gather_rows(
+        torch.cat([X, y[..., None], m[..., None].to(X.dtype)], -1)[None],
+        mesh)
+    got = parts[owner, torch.arange(top.shape[0], device=top.device)]
+    return got[..., :2], got[..., 2], got[..., 3] > 0
+
+
+def _subsample_rows(Xb, yb, mb, n_points: int):
+    """calib_subsample on the chosen rows: Xb [k, P, 2], yb, mb [k, P]."""
     order = torch.argsort((~mb).to(torch.uint8), dim=1, stable=True)
     cnt = torch.sum(mb, dim=1).to(torch.int32)
     j = torch.arange(n_points, dtype=torch.int32, device=mb.device)
@@ -341,12 +403,14 @@ def calib_subsample(batch: patches_mod.PatchBatch, n_patches: int,
 
 
 def _calib_logpost(batch, cfg: CompressorConfig, calib_patches, calib_points,
-                   calib_dtype):
+                   calib_dtype, mesh=None):
     from gp_compressor_tpu_torch.inference import hmc
 
-    B = min(calib_patches, batch.X.shape[0])
+    rows = batch.X.shape[0] * (1 if mesh is None
+                               else mesh_lib.axis_size(mesh, "data"))
+    B = min(calib_patches, rows)
     n = min(calib_points, batch.X.shape[1])
-    Xc, yc, mc = calib_subsample(batch, B, n)
+    Xc, yc, mc = calib_subsample(batch, B, n, mesh=mesh)
     logpost = hmc.make_patch_logpost(Xc.to(calib_dtype), yc.to(calib_dtype),
                                      mc.to(calib_dtype))
     g = cfg.depth_gp
@@ -378,10 +442,10 @@ def compress_decompress_calibrated(points, colors, valid,
     tensors, so nothing is read back between stages. theta_init: optional
     warm start (the previous cloud's log theta) — pair with calib_steps ~40
     and calib_starts=1. calib_dtype: the dtype of the ascent (float32 on
-    the card; the tests pass float64). mesh: the subsample is taken from
-    the whole batch (its top-k over patch counts is global), the MAP
-    starts are cut over `chain` and every rank gets the same theta; then
-    as compress_decompress.
+    the card; the tests pass float64). mesh: points, colors and valid are
+    this rank's block; the subsample's rows are gathered from their
+    owners (calib_subsample), the MAP starts are cut over `chain` and
+    every rank gets the same theta; then as compress_decompress.
 
     Returns (CompressedCloud, depth RBFParams, s20 0-dim tensor,
     decompress outputs)."""
@@ -389,9 +453,9 @@ def compress_decompress_calibrated(points, colors, valid,
 
     generator = _shuffle_source(points, cfg, generator, shuffle_bits)
     batch = project(points, colors, valid, cfg, generator=generator,
-                    shuffle_bits=shuffle_bits)
+                    shuffle_bits=shuffle_bits, mesh=mesh)
     logpost, theta0 = _calib_logpost(batch, cfg, calib_patches, calib_points,
-                                     calib_dtype)
+                                     calib_dtype, mesh=mesh)
     theta, _ = hmc.map_estimate_multi(logpost, theta0, steps=calib_steps,
                                       lr=calib_lr, n_starts=calib_starts,
                                       theta_init=theta_init, mesh=mesh)

@@ -4,7 +4,8 @@ virtual CPU mesh (tests/conftest.py).
 
 One module fixture runs the JAX references (tests/test_parallel.py's and
 __graft_entry__.dryrun_multichip's sharded programs, float32 pipelines
-with the MAP in float64 under x64), writes them to `jax.npz`, then spawns
+with the MAP in float64 under x64, and the round trip with a float64 cloud
+and float64 GPs), writes them to `jax.npz`, then spawns
 4 ranks of `gp_compressor_tpu_torch.testing.dist_worker cases` (explicit
 rendezvous arguments) and 2 ranks of its `cluster` scenario (torchrun's
 environment variables), each of which prints one JSON line. The cases
@@ -16,7 +17,11 @@ on this cloud; tests/test_torch_compressor.py bounds the gap at 2%), so
 the float outputs of JAX's mesh run are held against the port's sharded
 decompress, RMSE and register run on JAX's own states, at the tolerances
 JAX's tests hold its mesh run to its single run. The sharded port is held
-to the single-process port at those tolerances or exactly.
+to the single-process port at those tolerances or exactly. Under a mesh
+each rank takes its block of the cloud's points (`compressor.shard_points`)
+and keeps its patch rows: the point-sharded front end is held to the
+single process's `project` exactly (the float64 moment and mean sums add
+up in another order there, which these clouds do not show).
 """
 
 import json
@@ -50,14 +55,15 @@ REG_W = (0.004, -0.003, 0.002)
 REG_T = (0.008, -0.006, 0.004)
 
 
-def _pipe_cfg(max_patches=128):
+def _pipe_cfg(max_patches=128, dtype=jnp.float32):
     return jcfg.CompressorConfig(
         patch=jcfg.PatchConfig(res=0.5, sz=8, max_patches=max_patches,
                                max_points_per_patch=128,
                                approx_sphere_moments=True,
                                bank_order="center_out"),
-        depth_gp=jcfg.GPConfig(capacity=20, slots=32, eps_tol=2.0),
-        rgb_gp=jcfg.rgb_gp_config(slots=32, capacity=20))
+        depth_gp=jcfg.GPConfig(capacity=20, slots=32, eps_tol=2.0,
+                               dtype=dtype),
+        rgb_gp=jcfg.rgb_gp_config(slots=32, capacity=20, dtype=dtype))
 
 
 def _rcfg():
@@ -133,6 +139,13 @@ def _jax_runs(m8, m42):
     out["round_trip"] = {"comp": comp, "world": o[0], "colors": o[1],
                          "valid": o[2],
                          "rmse": jcomp.reconstruction_rmse(comp, cfg)}
+
+    cfg64 = _pipe_cfg(dtype=jnp.float64)
+    pts, cols, valid = (a.astype(jnp.float64) if a.dtype != bool else a
+                        for a in _cloud(5000, 3))
+    comp, _ = jcomp.compress_decompress(*put(pts, cols, valid), cfg64,
+                                        jax.random.key(7), mesh=m8)
+    out["round_trip64"] = jcomp.reconstruction_rmse(comp, cfg64)
 
     pts, cols, valid = _cloud(4000, 5)
     comp = jcomp.compress(pts, cols, valid, cfg, jax.random.key(0))
@@ -228,6 +241,16 @@ def test_mesh_errors(runs):
 
 
 @pytest.mark.parametrize("name", MESHES)
+def test_all_to_all_rows_routes_in_block_order(runs, name):
+    """Rows of mixed dtypes and shapes (one rank sends none) reach the
+    rank of their destination coordinate bit for bit, in source order."""
+    for o in runs["cases"]:
+        assert o["route"][name]["equal"], (o["rank"], o["route"][name])
+    # ranks 0, 2, 3 send 5, 11 and 14 rows, each to a rank of its group
+    assert sum(o["route"][name]["received"] for o in runs["cases"]) == 30
+
+
+@pytest.mark.parametrize("name", MESHES)
 def test_sharded_training_matches_single(runs, name):
     """Float64, the plain version: each rank trains its rows; gathered,
     equal to the whole bank's training (tests/test_parallel.py holds JAX
@@ -264,14 +287,71 @@ def test_chain_sharded_hmc_and_map_exact(runs, case):
             assert r["equal"] and r["max_diff"] == 0.0, (o["rank"], name, r)
 
 
+FRONT_END_VARIANTS = ("center_out", "shuffle", "native_exact")
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("variant", FRONT_END_VARIANTS)
+def test_sharded_front_end_matches_single(runs, variant, name):
+    """project on each rank's block of a 4,999-point cloud (center_out and
+    the default shuffle order at PIPE_CFG, and native with the exact
+    27-offset moments), gathered: the grid (bounds, leaf table, dense
+    lookup), n_leaves, every claim, counts, W mask, bank mask and the
+    banked cloud rows equal to the single process's; means, rotations and
+    banks bit-equal too on this cloud (atol 0: the reordered float64 sums
+    round to the same float32 values). Each rank holds 128 / n_data patch
+    rows and 5,000 / n_data point rows."""
+    n_data = 2 if name == "2x2" else 4
+    for o in runs["cases"]:
+        r = o["front_end"][variant][name]
+        assert r["local_rows"] == 128 // n_data
+        assert r["claim_rows"] == 5000 // n_data
+        assert r["grid_equal"] and r["n_leaves"] > 64, (o["rank"], r)
+        assert r["claims_differ"] == 0, (o["rank"], r)
+        for k in ("W_equal", "mask_equal", "counts_equal", "ids_equal"):
+            assert r[k], (o["rank"], k)
+        assert r["banked"] > 4000
+        assert r["rows_differ"] == 0, (o["rank"], r)
+        assert all(v == 0.0 for v in r["max_diff"].values()), r["max_diff"]
+
+
+def test_front_end_padding_rows_are_inert(runs):
+    """4,999 points over 2 or 4 blocks: the last data block holds one
+    padding row (zero, invalid; the cloud is moved away from the origin,
+    so a padding row that counted would move the bounds). Its claim is -1
+    and the grid is the single process's on every mesh."""
+    for o in runs["cases"]:
+        for variant in FRONT_END_VARIANTS:
+            for name, chain in (("2x2", 2), ("4x1", 1)):
+                r = o["front_end"][variant][name]
+                last = o["rank"] // chain == 4 // chain - 1
+                assert r["pad_rows"] == (1 if last else 0)
+                assert r["pad_claims_unclaimed"] and r["grid_equal"]
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_round_trip64_matches_single_and_jax_mesh(runs, name):
+    """The round trip at PIPE_CFG with a float64 cloud and float64 GPs,
+    from point blocks: the RMSE equals the single process's to rtol 1e-12
+    (the global sums' order) and JAX's 8-device run's to rtol 1e-9 (float64
+    training agrees across the packages)."""
+    jv = float(runs["jax"]["round_trip64"])
+    for o in runs["cases"]:
+        r = o["round_trip64"]
+        np.testing.assert_allclose(r[name], r["single"], rtol=1e-12)
+        np.testing.assert_allclose(r[name], jv, rtol=1e-9)
+
+
 @pytest.mark.parametrize("name", MESHES)
 def test_round_trip_sharded_matches_single(runs, name):
-    """compress_decompress at PIPE_CFG: claims, mask and valid exact; the
-    banks and both GP states bit-equal (per-patch work); RMSE to rtol
-    1e-6 (only the global sum's order changes)."""
+    """compress_decompress at PIPE_CFG from each rank's block of the cloud:
+    claims, mask and valid exact; the banks and both GP states bit-equal
+    (per-patch work); RMSE to rtol 1e-6 (only the global sum's order
+    changes)."""
     for o in runs["cases"]:
         r = o["round_trip"][name]
         assert r["local_rows"] == (64 if name == "2x2" else 32)
+        assert r["claim_rows"] == (2500 if name == "2x2" else 1250)
         for k in ("claims_equal", "n_leaves_equal", "mask_equal",
                   "valid_equal", "banks_equal"):
             assert r[k], (o["rank"], k)
@@ -392,18 +472,24 @@ def test_cluster_joined_from_environment(runs):
 
 
 def test_shard_report_partitions_banks(runs):
-    """Every bank, GP-state and decompress leaf is this rank's half on the
-    2 x 2 mesh; the claims stay whole; no device peak on the CPU."""
+    """Every point, bank, GP-state and decompress leaf is this rank's half
+    on the 2 x 2 mesh, the claims included (no rank holds the whole point
+    axis or the whole banks); the point rows are the data coordinate's
+    block; no device peak on the CPU, for any stage."""
     for o in runs["cases"]:
         rep = o["shard_report"]
         assert rep["n_ranks"] == 4 and rep["device"] == "cpu"
+        d = rep["coordinate"]["data"]
+        assert rep["point_rows"] == [2500 * d, 2500 * (d + 1)]
         leaves = rep["calibrated_pipeline"]["leaves"]
+        assert "points" in leaves and "patch.claims" in leaves
         for k, v in leaves.items():
-            want = "whole" if k == "patch.claims" else "partitioned"
-            assert v["layout"] == want, (k, v)
-            if want == "partitioned":
-                assert 2 * v["rows"] == v["of"], (k, v)
+            assert v["layout"] == "partitioned", (k, v)
+            assert 2 * v["rows"] == v["of"], (k, v)
         assert rep["calibrated_pipeline"]["peak_bytes"] is None
+        for k in ("stage_peak_bytes", "stage_start_bytes"):
+            assert rep[k] == {"front_end": None, "training": None,
+                              "decompress": None}
         assert rep["register"]["steps"] >= 2
 
 
