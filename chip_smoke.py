@@ -746,6 +746,25 @@ def timed(fn):
     return r, time.perf_counter() - t0
 
 
+def counted(name: str):
+    """The port's count `name` so far (utils/profiling.count)."""
+    from gp_compressor_tpu_torch.utils import profiling
+    return profiling.counters().get(name, 0)
+
+
+def reset_counters():
+    from gp_compressor_tpu_torch.utils import profiling
+    profiling.reset_counters()
+
+
+def nuts_counts() -> dict:
+    """The nuts.* counts since the last reset_counters, without the
+    prefix (leapfrogs a 0-dim device tensor once a transition ran)."""
+    return {k: counted("nuts." + k) for k in (
+        "transitions", "iterations", "reads", "leapfrogs",
+        "find_iterations", "find_reads")}
+
+
 def count_syncs(fn):
     """(fn(), number of synchronising CUDA calls it made, {"file:line":
     count} of the Python lines that made them), counted by torch's sync
@@ -772,7 +791,6 @@ def calibrated_phase(pts, cols, valid, ccfg, dev, kind, card):
     its stage split, the host syncs of the MAP ascent, and the training
     kernel against its plain version at the calibrated bench banks.
     Returns (cold CompressedCloud, its depth RBFParams, its s20)."""
-    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
     from gp_compressor_tpu_torch.inference import hmc
     from gp_compressor_tpu_torch.models import sparse_gp
     from gp_compressor_tpu_torch.ops.kernels import RBFParams
@@ -795,13 +813,13 @@ def calibrated_phase(pts, cols, valid, ccfg, dev, kind, card):
             return r
 
         round_trip()                                       # warm-up
-        sogp_train.LAUNCHES = 0
+        l0 = counted("sogp_train.launches")
         walls = []
         for _ in range(2):
             t0 = time.perf_counter()
             comp, kp, s20, out = round_trip()
             walls.append(time.perf_counter() - t0)
-        launches = sogp_train.LAUNCHES
+        launches = counted("sogp_train.launches") - l0
         check(launches == 4, f"[6] {name}: kernel launches {launches}, "
                              "expected 2 per round trip")
         hp = [float(kp.sigmaf_sq), float(kp.l_sq), float(s20)]
@@ -1087,6 +1105,7 @@ def mapping_phase(pts, cols, valid, ccfg, dev, kind, card):
     from gp_compressor_tpu_torch.cuda_kernels import sogp_train
     from gp_compressor_tpu_torch.geometry import patches
     from gp_compressor_tpu_torch.ops.kernels import RBFParams
+    from gp_compressor_tpu_torch.utils import profiling
     from gp_compressor_tpu_torch.workloads import compressor, mapping
 
     res = ccfg.patch.res
@@ -1155,13 +1174,13 @@ def mapping_phase(pts, cols, valid, ccfg, dev, kind, card):
         run()
     finally:
         sogp_train.add_points_batch_cuda = launch_fn
-    sogp_train.LAUNCHES = 0
+    l0 = counted("sogp_train.launches")
     walls = []
     for _ in range(TIMED_RUNS):
         t0 = time.perf_counter()
         st, dvg, reg_steps, info = run()
         walls.append(time.perf_counter() - t0)
-    launches = sogp_train.LAUNCHES
+    launches = counted("sogp_train.launches") - l0
     wall = sorted(walls)[len(walls) // 2]
     n_scans = TIMED_RUNS * MAP_SCANS
     check(launches > 0, "[8] the stream launched no training kernel")
@@ -1200,21 +1219,20 @@ def mapping_phase(pts, cols, valid, ccfg, dev, kind, card):
         say(f"[8] kernel at the mapping call site, main bank D={gcfg.dout} "
             f"on {kind} ({card}): {json.dumps(res)}; {json.dumps(stats)}")
 
-    # ---- one insert's stage split, synchronised between stages
-    split, last = {}, [0.0]
-
-    def on_stage(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        split[name] = now - last[0]
-        last[0] = now
-
+    # ---- one insert's stage split: the host wall of each stage's span
+    # (spans do not synchronise: the host's queueing and its reads)
+    profiling.take()
+    profiling.tracing(True)
+    try:
+        mapping.add_cloud_fused(seed, *stream[0], ccfg, mcfg, rcfg=rcfg,
+                                **calib)
+    finally:
+        profiling.tracing(False)
     torch.cuda.synchronize()
-    last[0] = time.perf_counter()
-    mapping.add_cloud_fused(seed, *stream[0], ccfg, mcfg, rcfg=rcfg,
-                            on_stage=on_stage, **calib)
-    say(f"[8] stages of one stream scan (s, host wall, synchronised between "
-        f"stages) on {kind} ({card}): {json.dumps(split)}; sum "
+    split = {r.name: r.end - r.start for r in profiling.take()
+             if r.name.startswith("map.")}
+    say(f"[8] stages of one stream scan (s, host wall of each span, "
+        f"unsynchronised) on {kind} ({card}): {json.dumps(split)}; sum "
         f"{sum(split.values()):.4f} s")
     _, n_sync, where = count_syncs(run)
     say(f"[8] synchronising CUDA calls in one add_clouds of {MAP_SCANS} "
@@ -1251,10 +1269,10 @@ def mapping_phase(pts, cols, valid, ccfg, dev, kind, card):
 
 
 def nuts_row(samples, acc, eps, wall, cfg, seed) -> dict:
-    """One NUTS run's numbers, with nuts.COUNTS of that run."""
+    """One NUTS run's numbers, with the nuts.* counts of that run."""
     from gp_compressor_tpu_torch.inference import hmc, nuts
 
-    c = nuts.COUNTS
+    c = nuts_counts()
     n_steps = cfg.num_warmup + cfg.num_samples
     ess = hmc.effective_sample_size(samples)
     s = samples.double().reshape(-1, 3)
@@ -1271,7 +1289,6 @@ def nuts_row(samples, acc, eps, wall, cfg, seed) -> dict:
         "chain_means": samples.double().mean(1).tolist(),
         "step_size": eps.tolist(),
         "leapfrogs_per_transition": float(c["leapfrogs"]) / c["transitions"],
-        "max_leapfrogs": int(c["max_leapfrogs"]),
         "lockstep_iterations_per_transition": c["iterations"] / n_steps,
         "reads_per_transition": c["reads"] / n_steps,
         "step_size_search_reads": c["find_reads"]}
@@ -1290,7 +1307,7 @@ def nuts_rows(logpost, dev, kind, card):
                         num_chains=C)
         g = torch.Generator(device=dev).manual_seed(seed)
         th0 = theta0 + 0.2 * torch.randn((C, 3), generator=g, device=dev)
-        nuts.reset_counts()
+        reset_counters()
         (samples, acc, eps), wall = timed(lambda: nuts.nuts_sample_chains(
             logpost, th0, cfg, generator=g))
         r = nuts_row(samples, acc, eps, wall, cfg, seed)
@@ -1320,25 +1337,25 @@ def nuts_rows(logpost, dev, kind, card):
               f"[9] NUTS {C}: max split-R-hat {r['max_rhat']}")
     # the reads are the only synchronising calls of a transition
     theta, eps = out
-    nuts.reset_counts()
+    reset_counters()
     _, n_sync, where = count_syncs(lambda: nuts.nuts_step(
         logpost, theta, eps, torch.ones_like(theta), generator=g))
+    c = nuts_counts()
     say(f"[9] one NUTS transition of 4 chains: {n_sync} synchronising calls "
-        f"({json.dumps(where)}), {nuts.COUNTS['reads']} stop-flag reads in "
-        f"{nuts.COUNTS['iterations']} lockstep leapfrogs (block "
-        f"{nuts.BLOCK})")
-    check(n_sync == nuts.COUNTS["reads"], "[9] a NUTS transition "
+        f"({json.dumps(where)}), {c['reads']} stop-flag reads in "
+        f"{c['iterations']} lockstep leapfrogs (block {nuts.BLOCK})")
+    check(n_sync == c["reads"], "[9] a NUTS transition "
           "synchronised outside its stop-flag reads")
     step = lambda: nuts.nuts_step(logpost, theta, eps, torch.ones_like(theta),
                                   generator=g)
-    nuts.reset_counts()
+    reset_counters()
     _, w = timed(step)
-    it = nuts.COUNTS["iterations"]
-    nuts.reset_counts()
+    it = nuts_counts()["iterations"]
+    reset_counters()
     prof = profile_summary(step, w)
-    prof["lockstep_iterations"] = nuts.COUNTS["iterations"]
+    prof["lockstep_iterations"] = nuts_counts()["iterations"]
     prof["kernels_per_iteration"] = prof["device_kernels"] / max(
-        nuts.COUNTS["iterations"], 1)
+        prof["lockstep_iterations"], 1)
     say(f"[9] one NUTS transition of 4 chains profiled on {kind} ({card}), "
         f"unprofiled wall {w * 1e3:.2f} ms for {it} iterations: "
         f"{json.dumps(prof)}")
@@ -1349,7 +1366,6 @@ def bayes_phase(pts, cols, valid, ccfg, comp, smc_ctx, dev, kind, card):
     """Phase 9: the Bayesian rows with their guards, and the card against
     the CPU with the same draws."""
     from gp_compressor_tpu_torch.config import SMCConfig
-    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
     from gp_compressor_tpu_torch.geometry import transforms
     from gp_compressor_tpu_torch.inference import hmc, vi
     from gp_compressor_tpu_torch.testing import bayes_case
@@ -1395,7 +1411,7 @@ def bayes_phase(pts, cols, valid, ccfg, comp, smc_ctx, dev, kind, card):
         hmc_walls.append(w)
         return r
 
-    n0 = sogp_train.LAUNCHES
+    n0 = counted("sogp_train.launches")
     hmc.hmc_sample_chains = timed_hmc
     try:
         (comp_h, kph, s20h, cal), wall = timed(
@@ -1404,7 +1420,7 @@ def bayes_phase(pts, cols, valid, ccfg, comp, smc_ctx, dev, kind, card):
                 calib_steps=HMC_CAL_STEPS))
     finally:
         hmc.hmc_sample_chains = sample_chains
-    launches = sogp_train.LAUNCHES - n0
+    launches = counted("sogp_train.launches") - n0
     hp = [float(kph.sigmaf_sq), float(kph.l_sq), s20h]
     rmse = float(compressor.reconstruction_rmse(comp_h, cal, depth_kp=kph,
                                                 depth_s20=s20h))
@@ -1559,15 +1575,15 @@ def ksvd_phase(pts, cols, valid, ccfg, dev, kind, card):
     t_phase = time.perf_counter()
 
     def run(seed):
-        dictionary.READS = 0
+        r0 = counted("ksvd.reads")
         comp = kc.compress(pts, cols, valid, ccfg, generator=torch.Generator(
             device=dev).manual_seed(seed))
         torch.cuda.synchronize()
-        return comp, dictionary.READS
+        return comp, counted("ksvd.reads") - r0
 
     run(0)                                                 # warm-up
     torch.cuda.reset_peak_memory_stats(dev)
-    sogp_train.LAUNCHES = 0
+    l0 = counted("sogp_train.launches")
     rows = []
     for seed in (1, 2):
         t0 = time.perf_counter()
@@ -1590,8 +1606,8 @@ def ksvd_phase(pts, cols, valid, ccfg, dev, kind, card):
     say(f"[10] K-SVD compress on {kind} ({card}): best {best:.4f} s = "
         f"{N_POINTS / best:.1f} points/s; peak memory {peak} B; runs "
         f"{json.dumps(rows)}")
-    check(sogp_train.LAUNCHES == 0, "[10] the K-SVD path launched the "
-                                    "training kernel")
+    check(counted("sogp_train.launches") == l0,
+          "[10] the K-SVD path launched the training kernel")
     rng = KSVD_JAX["range"]
     for r in rows:
         # each sweep's stop test is the one read: iters per ksvd call
@@ -1705,7 +1721,7 @@ def icp_accuracy_phase(pts, valid, ccfg, comp_ref, dev, kind, card):
     run()                                                   # warm-up
     walls = []
     for _ in range(3):
-        icp.READS = 0
+        r0 = counted("icp.reads")
         t0 = time.perf_counter()
         res = run()
         walls.append(time.perf_counter() - t0)
@@ -1713,7 +1729,8 @@ def icp_accuracy_phase(pts, valid, ccfg, comp_ref, dev, kind, card):
                                                  t_true)
     final = float(torch.linalg.norm(transforms.apply(moved, res.R, res.t)
                                     - pts, dim=1).mean())
-    row = {"iters": res.iters, "stop_reads": icp.READS,
+    row = {"iters": res.iters,
+           "stop_reads": counted("icp.reads") - r0,
            "trans_err_m": float(terr), "rot_err_rad": float(rerr),
            "initial_mean_err_m": float(torch.linalg.norm(
                moved - pts, dim=1).mean()), "final_mean_err_m": final,
@@ -1828,10 +1845,10 @@ def accuracy_pairs(dev, kind, card):
                 "project_s": t_p,
                 "patches_with_points": int(batch.mask.any(1).sum())}
         for route, use in (("kernel", True), ("plain", False)):
-            sogp_train.LAUNCHES = 0
+            l0 = counted("sogp_train.launches")
             comp, t_t = timed(lambda: compressor.train(batch, acfg,
                                                        use_kernel=use))
-            launches += sogp_train.LAUNCHES
+            launches += counted("sogp_train.launches") - l0
             pair[route] = dict(align_pair(comp, acfg, rcfg, scan, scols,
                                           truth, Rt, tt), train_s=t_t)
         pairs.append(pair)
@@ -2102,7 +2119,6 @@ def cli_phase(dev, kind, card):
     import numpy as np
 
     from gp_compressor_tpu_torch import cli
-    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
     from gp_compressor_tpu_torch.io import artifact, checkpoint, native, pcd
     from gp_compressor_tpu_torch.io import tum
     from gp_compressor_tpu_torch.models import sparse_gp
@@ -2144,10 +2160,10 @@ def cli_phase(dev, kind, card):
           and np.array_equal(a[0], pts_np),
           "[12] the native and NumPy PCD readers differ")
     out_pcd, ckpt = path("gp.pcd"), path("gp.npz")
-    sogp_train.LAUNCHES = 0
+    l0 = counted("sogp_train.launches")
     lines = run("gp-compress", ["gp-compress", "--cloud", cloud, "--out",
                                 out_pcd, "--checkpoint", ckpt])
-    launches = sogp_train.LAUNCHES
+    launches = counted("sogp_train.launches") - l0
     check(launches == 2, f"[12] gp-compress launched the kernel {launches} "
                          "times, expected 2")
     got = {f: field(lines, p) for f, p in (
@@ -2205,10 +2221,10 @@ def cli_phase(dev, kind, card):
 
     # ---- compress -> decompress (the K-SVD artifact) at the defaults
     name = path("ksvd")
-    sogp_train.LAUNCHES = 0
+    l0 = counted("sogp_train.launches")
     lines = run("compress", ["compress", "--name", name], show=False)
-    check(sogp_train.LAUNCHES == 0, "[12] compress launched the training "
-                                    "kernel")
+    check(counted("sogp_train.launches") == l0,
+          "[12] compress launched the training kernel")
     iters = [int(ln.split()[2].rstrip(":")) for ln in lines
              if ln.startswith("ksvd iter")]
     split = iters.index(1, 1)           # each ksvd call counts from 1
@@ -2236,10 +2252,11 @@ def cli_phase(dev, kind, card):
           "[12] the decompressed .pcd")
 
     # ---- gp-accuracy: the synthetic pair with ICP, then the TUM fixture
-    sogp_train.LAUNCHES = 0
+    l0 = counted("sogp_train.launches")
     got = json.loads(run("gp-accuracy", ["gp-accuracy", "--baseline",
                                          "icp"])[-1])
-    check(sogp_train.LAUNCHES == 2, "[12] gp-accuracy: kernel launches")
+    check(counted("sogp_train.launches") - l0 == 2,
+          "[12] gp-accuracy: kernel launches")
     ja = CLI_JAX["gp_accuracy"]
     check(got["initial_mean_err_m"] == ja["initial_mean_err_m"],
           f"[12] gp-accuracy's injected error {got['initial_mean_err_m']} != "
@@ -2483,13 +2500,13 @@ def sharded_rank(outdir: str, backend: str, full: bool) -> int:
 
     round_trip()
     dist.barrier()
-    sogp_train.LAUNCHES = 0
+    l0 = counted("sogp_train.launches")
     times = []
     for _ in range(TIMED_RUNS):
         t0 = time.perf_counter()
         comp, out = round_trip()
         times.append(time.perf_counter() - t0)
-    res["launches"] = sogp_train.LAUNCHES
+    res["launches"] = counted("sogp_train.launches") - l0
     walls["round_trip"] = times
     res["rmse"] = float(compressor.reconstruction_rmse(comp, ccfg,
                                                        mesh=mesh))
@@ -2984,13 +3001,13 @@ def main() -> int:
 
     round_trip()                                   # warm-up
     torch.cuda.reset_peak_memory_stats(dev)
-    sogp_train.LAUNCHES = 0
+    l0 = counted("sogp_train.launches")
     times = []
     for _ in range(TIMED_RUNS):
         t0 = time.perf_counter()
         comp, out = round_trip()
         times.append(time.perf_counter() - t0)
-    launches = sogp_train.LAUNCHES
+    launches = counted("sogp_train.launches") - l0
     peak = torch.cuda.max_memory_allocated(dev)
     check(launches == 2 * TIMED_RUNS,
           f"kernel launches {launches}, expected {2 * TIMED_RUNS}")

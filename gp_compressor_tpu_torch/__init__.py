@@ -19,7 +19,7 @@ JAX package, so each function's counterpart sits at the same place:
   * `cli.py`      the command line (`python -m gp_compressor_tpu_torch.cli`)
   * `io/`         PCD (NumPy and the native C++ library), TUM datasets,
                   the K-SVD artifact, checkpoints, the JAX state converter
-  * `utils/`      synthetic clouds, profiling timers, headless renders
+  * `utils/`      synthetic clouds, spans and counters, headless renders
 
 The package imports torch and numpy only — never jax, and nothing from
 `gp_compressor_tpu` (whose `config` imports `jax.numpy`).

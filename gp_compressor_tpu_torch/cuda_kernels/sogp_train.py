@@ -44,6 +44,7 @@ from gp_compressor_tpu_torch.models import sparse_gp
 from gp_compressor_tpu_torch.models.sparse_gp import SOGPState
 from gp_compressor_tpu_torch.ops.kernels import RBFParams
 from gp_compressor_tpu_torch.ops.noise import GaussianNoise
+from gp_compressor_tpu_torch.utils.profiling import count, span
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "sogp_train.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -52,9 +53,6 @@ SMEM_DEFAULT = 48 * 1024        # a block's shared memory without the opt-in
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches made by `launch`, counted right after each launch and
-# nowhere else (callers may reset it to 0 before a run)
-LAUNCHES = 0
 # set by build(): library path, build seconds (0.0 when reused) and the
 # ptxas register / shared-memory / spill report
 BUILD_INFO: dict = {}
@@ -62,11 +60,17 @@ _LIB = None
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library.
-    Raises if nvcc is missing or the build fails."""
+    """Compile (once per source hash) and load the kernel library, in the
+    span `sogp_train.build`. Raises if nvcc is missing or the build
+    fails."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
+    if _LIB is None:
+        with span("sogp_train.build"):
+            _LIB = _build_and_load()
+    return _LIB
+
+
+def _build_and_load() -> ctypes.CDLL:
     from torch.utils.cpp_extension import CUDA_HOME
 
     src = SOURCE.read_bytes()
@@ -100,7 +104,6 @@ def build() -> ctypes.CDLL:
     lib.sogp_train_error_string.restype = ctypes.c_char_p
     BUILD_INFO.update(path=str(lib_path), seconds=seconds,
                       ptxas=log_path.read_text() if log_path.exists() else "")
-    _LIB = lib
     return lib
 
 
@@ -183,8 +186,8 @@ def launch(cfg: GPConfig, states: SOGPState, out: SOGPState,
     `states` on the banks and writes the result into `out` (same shapes,
     separate storage); `states` is left unchanged. row: the
     `hyper_row` on the banks' device. Checks every tensor and raises on
-    what the kernel does not take."""
-    global LAUNCHES
+    what the kernel does not take. Each launch counts one
+    `sogp_train.launches` (profiling.count)."""
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
@@ -217,7 +220,7 @@ def launch(cfg: GPConfig, states: SOGPState, out: SOGPState,
     if err != 0:
         raise RuntimeError("sogp_train launch failed: "
                            + lib.sogp_train_error_string(err).decode())
-    LAUNCHES += 1
+    count("sogp_train.launches")
 
 
 def inline_division(a: torch.Tensor, b: torch.Tensor):

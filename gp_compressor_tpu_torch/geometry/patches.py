@@ -36,6 +36,7 @@ from gp_compressor_tpu_torch.config import PatchConfig
 from gp_compressor_tpu_torch.geometry import rotation, voxel
 from gp_compressor_tpu_torch.geometry.voxel import VoxelGrid
 from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
+from gp_compressor_tpu_torch.utils.profiling import span
 
 
 class PatchBatch(NamedTuple):
@@ -294,16 +295,27 @@ def claim_points(points: torch.Tensor, valid: torch.Tensor, cfg: PatchConfig,
     centers are the whole cloud's (build_grid, sphere_moments), and the
     claims, each a function of its point and of those, are this block's."""
     B = cfg.max_patches
+    with span("front_end.grid"):
+        grid = voxel.build_grid(points, valid, cfg.res, B, cfg.max_cells,
+                                mesh=mesh)
+    with span("front_end.moments"):
+        M, sphere_counts = sphere_moments(grid, points, valid, cfg,
+                                          mesh=mesh)
+    with span("front_end.frames"):
+        R = rotation.rotation_from_moment_batch(
+            M, sphere_counts, cfg.min_points_for_rotation).to(points.dtype)
+    with span("front_end.claims"):
+        claim, loc_claim, claimed = _claim(grid, R, points, valid, B)
+    return grid, R, voxel.voxel_centers(grid), claim, loc_claim, claimed
+
+
+def _claim(grid: VoxelGrid, R: torch.Tensor, points: torch.Tensor,
+           valid: torch.Tensor, B: int):
+    """claim_points' pass 2: (claim [N], loc_claim [N, 3], claimed [N])."""
     dt = points.dtype
     dev = points.device
     N = points.shape[0]
-
-    grid = voxel.build_grid(points, valid, cfg.res, B, cfg.max_cells,
-                            mesh=mesh)
     res = grid.res
-    M, sphere_counts = sphere_moments(grid, points, valid, cfg, mesh=mesh)
-    R = rotation.rotation_from_moment_batch(
-        M, sphere_counts, cfg.min_points_for_rotation).to(dt)
 
     # ---- pass 2: claiming. Per-leaf candidate tables keyed by the point's
     # home octant (8 reachable candidates of 27), then one row gather per
@@ -346,8 +358,7 @@ def claim_points(points: torch.Tensor, valid: torch.Tensor, cfg: PatchConfig,
     win = masked == claim[:, None]
     loc_claim = torch.sum(torch.where(win[..., None], loc, 0.0), dim=1)
     loc_claim = torch.where(claimed[:, None], loc_claim, 0.0)
-    centers_all = voxel.voxel_centers(grid)
-    return grid, R, centers_all, claim, loc_claim, claimed
+    return claim, loc_claim, claimed
 
 
 def build_patches(points: torch.Tensor, colors: torch.Tensor,
@@ -373,16 +384,18 @@ def build_patches(points: torch.Tensor, colors: torch.Tensor,
     B, P = cfg.max_patches, cfg.max_points_per_patch
     grid, R, centers_all, claim, loc_claim, claimed = claim_points(
         points, valid, cfg, mesh=mesh)
-    if cfg.bank_order != "shuffle":
-        shuffle_bits = None
-    elif shuffle_bits is None and generator is not None:
-        shuffle_bits = draw_shuffle_bits(B, P, points.device, generator)
-    if mesh is None:
-        banks = _fill_banks(claim, claimed, loc_claim, colors, R,
-                            centers_all, grid.res, cfg, shuffle_bits)
-    else:
-        banks = _owner_banks(claim, claimed, loc_claim, colors, R,
-                             centers_all, grid.res, cfg, shuffle_bits, mesh)
+    with span("front_end.banks"):
+        if cfg.bank_order != "shuffle":
+            shuffle_bits = None
+        elif shuffle_bits is None and generator is not None:
+            shuffle_bits = draw_shuffle_bits(B, P, points.device, generator)
+        if mesh is None:
+            banks = _fill_banks(claim, claimed, loc_claim, colors, R,
+                                centers_all, grid.res, cfg, shuffle_bits)
+        else:
+            banks = _owner_banks(claim, claimed, loc_claim, colors, R,
+                                 centers_all, grid.res, cfg, shuffle_bits,
+                                 mesh)
     return PatchBatch(grid=grid, n_leaves=grid.n_leaves,
                       claims=torch.where(claimed, claim, -1).to(torch.int32),
                       **banks)

@@ -33,6 +33,7 @@ from gp_compressor_tpu_torch.inference.nuts import (_generator, _safe_vag,
 from gp_compressor_tpu_torch.ops import linalg_f32
 from gp_compressor_tpu_torch.ops.kernels import sqdist
 from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
+from gp_compressor_tpu_torch.utils.profiling import span
 
 
 def gp_marginal_loglik(theta: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
@@ -125,13 +126,15 @@ def adam_update(g: torch.Tensor, state: AdamState, lr: float,
 
 
 def _ascend(vag: Callable, theta: torch.Tensor, steps: int, lr: float):
-    """Adam ascent of the value vag returns; (theta, trace [steps, ...])."""
+    """Adam ascent of the value vag returns; (theta, trace [steps, ...]).
+    Each step (value, gradient, update) is a `calibration.step` span."""
     state = adam_init(theta)
     trace = []
     for _ in range(steps):
-        lp, g = vag(theta)
-        upd, state = adam_update(-g, state, lr)
-        theta = theta + upd
+        with span("calibration.step"):
+            lp, g = vag(theta)
+            upd, state = adam_update(-g, state, lr)
+            theta = theta + upd
         trace.append(lp)
     return theta, torch.stack(trace)
 

@@ -24,9 +24,12 @@ one `NUTSDraws` per transition, each drawn in one call per distribution,
 so the drawn and the fed paths run the same code. The dual-averaging
 constants are float32, as JAX computes them even under x64.
 
-`COUNTS` tallies the work for the card's smoke run (see reset_counts):
-transitions, lockstep loop iterations, host reads of stop flags, and the
-leapfrogs of all chains (a device tensor: reading it would synchronise).
+The work is counted (`profiling.count`) under `nuts.transitions`
+(chains x transitions), `nuts.iterations` (iterations of the lockstep
+loop, each one batched leapfrog), `nuts.reads` (host reads of stop
+flags), `nuts.leapfrogs` (of all chains: a 0-dim device tensor, since
+reading it would synchronise), and, of find_reasonable_step_size,
+`nuts.find_iterations` and `nuts.find_reads`.
 """
 
 from __future__ import annotations
@@ -39,24 +42,10 @@ import torch
 
 from gp_compressor_tpu_torch.config import HMCConfig
 from gp_compressor_tpu_torch.ops import linalg_f32
+from gp_compressor_tpu_torch.utils.profiling import count
 
 BLOCK = 8                          # leapfrogs between reads of stop flags
 GAMMA, T0, KAPPA = 0.05, 10.0, 0.75
-
-COUNTS = {}
-
-
-def reset_counts():
-    """Zero COUNTS. Of nuts_step: transitions (chains x transitions),
-    iterations of its lockstep loop (each one batched leapfrog), host reads,
-    and leapfrogs / max_leapfrogs (0-dim device tensors once a transition
-    ran: the sum over chains and transitions and the largest per-chain
-    count); of find_reasonable_step_size: find_iterations, find_reads."""
-    COUNTS.update(transitions=0, iterations=0, reads=0, leapfrogs=0,
-                  max_leapfrogs=0, find_iterations=0, find_reads=0)
-
-
-reset_counts()
 
 
 def _safe_vag(logpost: Callable) -> Callable:
@@ -203,14 +192,10 @@ def draw_transition(C: int, dim: int, max_depth: int, dtype, device,
 
 
 def _count_transition(n_lf: torch.Tensor, iterations: int, reads: int):
-    COUNTS["transitions"] += n_lf.shape[0]
-    COUNTS["iterations"] += iterations
-    COUNTS["reads"] += reads
-    COUNTS["leapfrogs"] = COUNTS["leapfrogs"] + n_lf.sum()
-    mx = n_lf.max()
-    prev = COUNTS["max_leapfrogs"]
-    COUNTS["max_leapfrogs"] = mx if isinstance(prev, int) \
-        else torch.maximum(prev, mx)
+    count("nuts.transitions", n_lf.shape[0])
+    count("nuts.iterations", iterations)
+    count("nuts.reads", reads)
+    count("nuts.leapfrogs", n_lf.sum())
 
 
 def nuts_step(logpost: Callable, theta0: torch.Tensor, eps, inv_mass,
@@ -371,8 +356,8 @@ def find_reasonable_step_size(logpost: Callable, theta0: torch.Tensor,
         eps = torch.where(go, eps * torch.exp2(a), eps)
         logr = torch.where(go, logr_at(eps), logr)
         n_it = n_it + go.to(torch.int32)
-        COUNTS["find_iterations"] += 1
-    COUNTS["find_reads"] += reads
+        count("nuts.find_iterations")
+    count("nuts.find_reads", reads)
     return torch.where(torch.isfinite(logp0), eps, eps0)
 
 

@@ -25,9 +25,10 @@ twice once the residual is orthogonal to every unused atom): the solve
 returns non-finite coefficients instead of raising, and the row stops.
 
 JAX's `lax.while_loop` over sweeps is a host loop here: each sweep ends in
-one device-to-host read of its stop test (counted in READS). The random
-data rows of the atom replacement are explicit draws (KSVDDraws), or come
-from a `torch.Generator`; the tests feed the draws JAX's keys make.
+one device-to-host read of its stop test (counted as `ksvd.reads`). The
+random data rows of the atom replacement are explicit draws (KSVDDraws),
+or come from a `torch.Generator`; the tests feed the draws JAX's keys
+make.
 """
 
 from __future__ import annotations
@@ -38,10 +39,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gp_compressor_tpu_torch.config import KSVDConfig
-
-# host reads of the K-SVD stop test, counted where they happen (callers
-# may reset it to 0 before a run)
-READS = 0
+from gp_compressor_tpu_torch.utils.profiling import count
 
 
 class OMPCode(NamedTuple):
@@ -306,7 +304,6 @@ def ksvd(S: torch.Tensor, W: torch.Tensor, valid: torch.Tensor,
     one host read. The atom replacement draws `draws`, or draws from
     `generator` (seed 0 when None). verbose prints each sweep's masked MSE
     and mean words, like the reference."""
-    global READS
     dt = S.dtype
     W = W.to(dt)
     valid = valid.to(torch.bool)
@@ -326,7 +323,7 @@ def ksvd(S: torch.Tensor, W: torch.Tensor, valid: torch.Tensor,
         if verbose:
             print(f"ksvd iter {it}: masked MSE {float(err):.6f}, "
                   f"mean words {float(mean_words):.2f}")
-        READS += 1
+        count("ksvd.reads")
         if bool(torch.abs(err - last) < cfg.stop_diff):
             break
         last = err

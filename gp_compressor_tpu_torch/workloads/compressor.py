@@ -48,6 +48,7 @@ from gp_compressor_tpu_torch.models import sparse_gp
 from gp_compressor_tpu_torch.models.sparse_gp import SOGPState
 from gp_compressor_tpu_torch.ops.kernels import RBFParams
 from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
+from gp_compressor_tpu_torch.utils.profiling import span
 
 # the patch-banked leaves of a PatchBatch, the ones a mesh cuts (JAX's
 # compressor._constrain_batch); grid, claims and n_leaves stay whole
@@ -74,6 +75,7 @@ def default_params(cfg: CompressorConfig,
     return kp(cfg.depth_gp), kp(cfg.rgb_gp)
 
 
+@span("front_end")
 def project(points: torch.Tensor, colors: torch.Tensor, valid: torch.Tensor,
             cfg: CompressorConfig, generator: torch.Generator = None,
             shuffle_bits: torch.Tensor = None,
@@ -176,6 +178,7 @@ def train_gp(batch: patches_mod.PatchBatch, gpcfg: GPConfig, kp: RBFParams,
                  eps_tol=eps_tol, geom=geom)
 
 
+@span("sanitize")
 def sanitize(batch: patches_mod.PatchBatch, cfg: CompressorConfig,
              dstates: SOGPState, cstates: SOGPState, depth_kp: RBFParams,
              rgb_kp: RBFParams, depth_s20, full_probes: bool = False):
@@ -240,15 +243,19 @@ def train(batch: patches_mod.PatchBatch, cfg: CompressorConfig,
                                 mask=take(batch.mask, pd))
         cbatch = batch._replace(X=take(batch.X, pc), rgb=take(batch.rgb, pc),
                                 mask=take(batch.mask, pc))
-    dstates = train_gp(dbatch, cfg.depth_gp, depth_kp, dbatch.y, use_kernel,
-                       s20=depth_s20, eps_tol=depth_eps, geom=geom)
-    cstates = train_gp(cbatch, cfg.rgb_gp, rgb_kp, cbatch.rgb, use_kernel,
-                       geom=geom)
+    with span("train.depth"):
+        dstates = train_gp(dbatch, cfg.depth_gp, depth_kp, dbatch.y,
+                           use_kernel, s20=depth_s20, eps_tol=depth_eps,
+                           geom=geom)
+    with span("train.rgb"):
+        cstates = train_gp(cbatch, cfg.rgb_gp, rgb_kp, cbatch.rgb,
+                           use_kernel, geom=geom)
     dstates, cstates, _, _ = sanitize(batch, cfg, dstates, cstates, depth_kp,
                                       rgb_kp, d_s20, full_probes)
     return CompressedCloud(patch=batch, depth_gp=dstates, rgb_gp=cstates)
 
 
+@span("decompress")
 def decompress(comp: CompressedCloud, cfg: CompressorConfig,
                depth_kp: Optional[RBFParams] = None,
                rgb_kp: Optional[RBFParams] = None, depth_s20=None,
@@ -330,6 +337,7 @@ def compress(points, colors, valid, cfg: CompressorConfig,
     return train(batch, cfg, use_kernel=use_kernel, geom=geom, mesh=mesh)
 
 
+@span("round_trip")
 def compress_decompress(points, colors, valid, cfg: CompressorConfig,
                         use_kernel: Optional[bool] = None, geom=None,
                         generator: torch.Generator = None,
@@ -420,6 +428,7 @@ def _calib_logpost(batch, cfg: CompressorConfig, calib_patches, calib_points,
     return logpost, theta0
 
 
+@span("round_trip")
 def compress_decompress_calibrated(points, colors, valid,
                                    cfg: CompressorConfig,
                                    use_kernel: Optional[bool] = None,
@@ -454,11 +463,13 @@ def compress_decompress_calibrated(points, colors, valid,
     generator = _shuffle_source(points, cfg, generator, shuffle_bits)
     batch = project(points, colors, valid, cfg, generator=generator,
                     shuffle_bits=shuffle_bits, mesh=mesh)
-    logpost, theta0 = _calib_logpost(batch, cfg, calib_patches, calib_points,
-                                     calib_dtype, mesh=mesh)
-    theta, _ = hmc.map_estimate_multi(logpost, theta0, steps=calib_steps,
-                                      lr=calib_lr, n_starts=calib_starts,
-                                      theta_init=theta_init, mesh=mesh)
+    with span("calibration"):
+        logpost, theta0 = _calib_logpost(batch, cfg, calib_patches,
+                                         calib_points, calib_dtype,
+                                         mesh=mesh)
+        theta, _ = hmc.map_estimate_multi(
+            logpost, theta0, steps=calib_steps, lr=calib_lr,
+            n_starts=calib_starts, theta_init=theta_init, mesh=mesh)
     sf, l2, s20 = torch.exp(theta).to(batch.X.dtype).unbind()
     depth_kp = RBFParams(sigmaf_sq=sf, l_sq=l2)
     # keep the relative novelty floor: eps_tol's natural scale is sigmaf_sq
@@ -501,20 +512,21 @@ def compress_calibrated(points, colors, valid, cfg: CompressorConfig,
     from gp_compressor_tpu_torch.inference import hmc
 
     batch = project(points, colors, valid, cfg)
-    logpost, theta0 = _calib_logpost(batch, cfg, calib_patches, calib_points,
-                                     calib_dtype)
     if generator is None:
         generator = torch.Generator(device=points.device).manual_seed(0)
-    if method == "hmc":
-        hcfg = HMCConfig(num_warmup=calib_steps, num_samples=calib_steps,
-                         num_chains=2)
-        samples, _, _ = hmc.hmc_sample_chains(
-            logpost, torch.stack([theta0, theta0 + 0.3]), hcfg,
-            generator=generator, draws=hmc_draws)
-        theta = torch.mean(samples.reshape(-1, 3), dim=0)
-    else:
-        theta, _ = hmc.map_estimate(logpost, theta0, steps=calib_steps,
-                                    lr=calib_lr)
+    with span("calibration"):
+        logpost, theta0 = _calib_logpost(batch, cfg, calib_patches,
+                                         calib_points, calib_dtype)
+        if method == "hmc":
+            hcfg = HMCConfig(num_warmup=calib_steps,
+                             num_samples=calib_steps, num_chains=2)
+            samples, _, _ = hmc.hmc_sample_chains(
+                logpost, torch.stack([theta0, theta0 + 0.3]), hcfg,
+                generator=generator, draws=hmc_draws)
+            theta = torch.mean(samples.reshape(-1, 3), dim=0)
+        else:
+            theta, _ = hmc.map_estimate(logpost, theta0, steps=calib_steps,
+                                        lr=calib_lr)
     sf, l2, s20 = torch.exp(theta).unbind()
     dt = batch.X.dtype
     depth_kp = RBFParams(sigmaf_sq=sf.to(dt), l_sq=l2.to(dt))

@@ -12,7 +12,7 @@ normal equations
 A geometric least-squares method with no GP state, so that its error
 curve and gp-accuracy's anchor each other. JAX's `lax.while_loop` is a
 host loop here: each iteration ends in one device-to-host read of its
-stop test (counted in READS).
+stop test (counted as `icp.reads`).
 """
 
 from __future__ import annotations
@@ -25,11 +25,8 @@ import torch
 from gp_compressor_tpu_torch.config import CompressorConfig
 from gp_compressor_tpu_torch.geometry import transforms
 from gp_compressor_tpu_torch.workloads import registration
+from gp_compressor_tpu_torch.utils.profiling import count
 from gp_compressor_tpu_torch.workloads.compressor import CompressedCloud
-
-# host reads of the stop test, counted where they happen (callers may
-# reset it to 0 before a run)
-READS = 0
 
 
 class ICPResult(NamedTuple):
@@ -47,7 +44,6 @@ def icp_register(comp: CompressedCloud, scan_points, scan_valid,
     Apply the result as p_aligned = p @ R.T + t (registration.register's
     convention). Stops when the twist increment's norm is not above `tol`
     (a non-finite one included) or after `max_iters`."""
-    global READS
     dt, dev = scan_points.dtype, scan_points.device
     normals = comp.patch.rotations[:, :, 0]
     tables = registration._map_claim_tables(comp)
@@ -76,7 +72,7 @@ def icp_register(comp: CompressedCloud, scan_points, scan_valid,
         R = transforms.matmul3(dR, R)
         t = dR @ t + dx[:3]
         it += 1
-        READS += 1
+        count("icp.reads")
         if not bool(torch.linalg.vector_norm(dx) > tol):
             break
     return ICPResult(R=R, t=t, iters=it, rms_residual=rms, n_matched=nm)

@@ -38,7 +38,7 @@ leaves the states as they are). Scatters that JAX drops with
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,6 +53,7 @@ from gp_compressor_tpu_torch.models import sparse_gp
 from gp_compressor_tpu_torch.models.sparse_gp import SOGPState
 from gp_compressor_tpu_torch.ops.kernels import RBFParams
 from gp_compressor_tpu_torch.ops.noise import ProbitNoise
+from gp_compressor_tpu_torch.utils.profiling import span
 from gp_compressor_tpu_torch.workloads import registration
 from gp_compressor_tpu_torch.workloads.compressor import (CompressedCloud,
                                                          default_params)
@@ -192,22 +193,21 @@ def _unique_sorted(x: torch.Tensor, size: int) -> torch.Tensor:
 
 def map_insert(state: MapState, points, colors, valid, cfg: CompressorConfig,
                mcfg: MappingConfig, min_nbr, depth_kp: RBFParams = None,
-               depth_s20=None, depth_eps=None,
-               on_stage: Optional[Callable[[str], None]] = None):
+               depth_s20=None, depth_eps=None):
     """insert_into_map + train_processes (src/gp_mapping.cpp:37-152,293-343).
 
     `points` are in world (map) coordinates. min_nbr: the evidence a
     voxel needs to become a patch (1 on the first scan, the reference's
     constructor path). depth_kp / depth_s20 / depth_eps: the map's
     (calibrated) depth hyperparameters, which ride the kernel's row.
-    on_stage: optional callback, called with each stage's name as the
-    stage's work is queued (a timer may synchronise there).
+    Each stage is a span (`map.allocate`, `map.sphere_stats`,
+    `map.tables`, `map.claims`, `map.sort_banks`, `map.train`,
+    `map.sanitize`, `map.pending`, `map.carve`).
 
     Returns (MapState, info) where info holds 0-dim int32 truncation
     counters: bank_dropped (claimed points beyond the main and spill
     banks), pend_dropped (points that found their pending buffer full),
     patch_overflow (new leaves past max_patches)."""
-    stage = on_stage or (lambda name: None)
     B = cfg.patch.max_patches
     G = cfg.patch.sz ** 2
     Pmax = cfg.patch.max_points_per_patch
@@ -221,234 +221,248 @@ def map_insert(state: MapState, points, colors, valid, cfg: CompressorConfig,
 
     # ---- 1. voxels touched by this scan; allocate leaves (gp indices of
     # new leaves in key order)
-    lin, in_box = _linkey(state, res, points)
-    lin_valid = torch.where(valid & in_box, lin, FILL)
-    uniq = _unique_sorted(lin_valid, B)
-    is_real = uniq != FILL
-    nc = state.key_to_leaf.shape[0]
-    existing = torch.where(
-        is_real, state.key_to_leaf[torch.clamp(uniq, max=nc - 1).long()], -2)
-    is_new = is_real & (existing == -1)
-    new_ids = state.n_patches + torch.cumsum(is_new.to(I32), 0, dtype=I32) - 1
-    overflow = new_ids >= B
-    fresh = is_new & ~overflow
-    n_patches = torch.clamp(state.n_patches + fresh.sum(), max=B).to(I32)
-    fresh_ids = torch.where(fresh, new_ids, 0).to(I32)
-    key_to_leaf = _scatter_rows(state.key_to_leaf,
-                                torch.where(fresh, uniq, nc), fresh_ids)
-    # the sorted leaf table, old keys and new
-    all_keys = torch.cat([state.leaf_keys, torch.where(fresh, uniq, FILL)])
-    all_ids = torch.cat([state.leaf_ids, fresh_ids])
-    order = torch.argsort(all_keys, stable=True)[:B]
-    leaf_keys, leaf_ids = all_keys[order], all_ids[order]
-    grid = VoxelGrid(keys=leaf_keys, n_leaves=n_patches, origin=state.origin,
-                     dims=state.dims, res=_full(cfg.patch.res, points),
-                     table=_slot_table(leaf_keys, nc))
-    stage("allocate")
+    with span("map.allocate"):
+        lin, in_box = _linkey(state, res, points)
+        lin_valid = torch.where(valid & in_box, lin, FILL)
+        uniq = _unique_sorted(lin_valid, B)
+        is_real = uniq != FILL
+        nc = state.key_to_leaf.shape[0]
+        existing = torch.where(
+            is_real, state.key_to_leaf[torch.clamp(uniq, max=nc - 1).long()],
+            -2)
+        is_new = is_real & (existing == -1)
+        new_ids = state.n_patches \
+            + torch.cumsum(is_new.to(I32), 0, dtype=I32) - 1
+        overflow = new_ids >= B
+        fresh = is_new & ~overflow
+        n_patches = torch.clamp(state.n_patches + fresh.sum(), max=B).to(I32)
+        fresh_ids = torch.where(fresh, new_ids, 0).to(I32)
+        key_to_leaf = _scatter_rows(state.key_to_leaf,
+                                    torch.where(fresh, uniq, nc), fresh_ids)
+        # the sorted leaf table, old keys and new
+        all_keys = torch.cat([state.leaf_keys, torch.where(fresh, uniq, FILL)])
+        all_ids = torch.cat([state.leaf_ids, fresh_ids])
+        order = torch.argsort(all_keys, stable=True)[:B]
+        leaf_keys, leaf_ids = all_keys[order], all_ids[order]
+        grid = VoxelGrid(keys=leaf_keys, n_leaves=n_patches,
+                         origin=state.origin, dims=state.dims,
+                         res=_full(cfg.patch.res, points),
+                         table=_slot_table(leaf_keys, nc))
 
     # ---- 2. sphere statistics of would-be-new patches (plane fits from
     # this scan's sphere points), remapped from sorted slots to gp indices
-    M_slot, cnt_slot = patches_mod.sphere_moments(grid, points, valid,
-                                                  cfg.patch)
-    slot_tgt, key_by_gid = _by_gid(leaf_keys, leaf_ids, n_patches)
-    M = _scatter_rows(torch.zeros((B, 4, 4), dtype=M_slot.dtype, device=dev),
-                      slot_tgt, M_slot)
-    sphere_counts = _scatter_rows(torch.zeros((B,), dtype=I32, device=dev),
-                                  slot_tgt, cnt_slot.to(I32))
-    R_fresh = rotation.rotation_from_moment_batch(
-        M, sphere_counts, cfg.patch.min_points_for_rotation).to(dt)
-    centers_all = state.origin + (voxel.delinearize(
-        torch.clamp(leaf_keys, max=FILL - 1), state.dims).to(dt) + 0.5) * res
-    centers_by_id = _scatter_rows(torch.zeros((B, 3), dtype=dt, device=dev),
-                                  slot_tgt, centers_all)
-    # leaves becoming patches now: not created, pending + sphere evidence
-    # >= min_nbr (src/gp_mapping.cpp:126)
-    becomes = (~state.created & (state.pend_count + sphere_counts >= min_nbr)
-               & (ar < n_patches))
-    stage("sphere_stats")
+    with span("map.sphere_stats"):
+        M_slot, cnt_slot = patches_mod.sphere_moments(grid, points, valid,
+                                                      cfg.patch)
+        slot_tgt, key_by_gid = _by_gid(leaf_keys, leaf_ids, n_patches)
+        M = _scatter_rows(
+            torch.zeros((B, 4, 4), dtype=M_slot.dtype, device=dev),
+            slot_tgt, M_slot)
+        sphere_counts = _scatter_rows(torch.zeros((B,), dtype=I32, device=dev),
+                                      slot_tgt, cnt_slot.to(I32))
+        R_fresh = rotation.rotation_from_moment_batch(
+            M, sphere_counts, cfg.patch.min_points_for_rotation).to(dt)
+        centers_all = state.origin + (voxel.delinearize(
+            torch.clamp(leaf_keys, max=FILL - 1), state.dims).to(dt)
+            + 0.5) * res
+        centers_by_id = _scatter_rows(
+            torch.zeros((B, 3), dtype=dt, device=dev), slot_tgt,
+            centers_all)
+        # leaves becoming patches now: not created, pending + sphere evidence
+        # >= min_nbr (src/gp_mapping.cpp:126)
+        becomes = (~state.created
+                   & (state.pend_count + sphere_counts >= min_nbr)
+                   & (ar < n_patches))
 
     # ---- 3. claims against the persistent tables, with the leaves that
     # become patches folded in first: incrementally up to
     # table_update_max of them, by a full build past it
-    trained_or_new = state.created | becomes
-    rot_eff = torch.where(becomes[:, None, None], R_fresh, state.rotations)
-    mean_eff = torch.where(becomes[:, None], centers_by_id, state.means)
-    K_INC = mcfg.table_update_max
-    n_changed = int(becomes.sum())        # the insert's read: table choice
-    if n_changed > K_INC:
-        tables = registration.build_claim_tables_dense(
-            key_to_leaf, key_by_gid, n_patches, trained_or_new, rot_eff,
-            mean_eff, state.dims)
-    elif n_changed > 0:
-        changed = torch.sort(torch.where(becomes, ar.to(I32), B)).values[:K_INC]
-        tables = registration.update_claim_tables(
-            state.tables, torch.clamp(changed, max=B - 1), changed < B,
-            key_to_leaf, key_by_gid, trained_or_new, rot_eff, state.dims)
-    else:
-        tables = state.tables
-    tables = tables._replace(nm=torch.cat([rot_eff[:, :, 0], mean_eff], 1))
-    stage("tables")
-    claim, loc_claim, claimed = registration.claim_with_tables(
-        tables, grid, points, valid, cfg.patch.res, out_fill=B)
-    stage("claims")
+    with span("map.tables"):
+        trained_or_new = state.created | becomes
+        rot_eff = torch.where(becomes[:, None, None], R_fresh, state.rotations)
+        mean_eff = torch.where(becomes[:, None], centers_by_id, state.means)
+        K_INC = mcfg.table_update_max
+        n_changed = int(becomes.sum())        # the insert's read: table choice
+        if n_changed > K_INC:
+            tables = registration.build_claim_tables_dense(
+                key_to_leaf, key_by_gid, n_patches, trained_or_new, rot_eff,
+                mean_eff, state.dims)
+        elif n_changed > 0:
+            changed = torch.sort(
+                torch.where(becomes, ar.to(I32), B)).values[:K_INC]
+            tables = registration.update_claim_tables(
+                state.tables, torch.clamp(changed, max=B - 1), changed < B,
+                key_to_leaf, key_by_gid, trained_or_new, rot_eff, state.dims)
+        else:
+            tables = state.tables
+        tables = tables._replace(nm=torch.cat([rot_eff[:, :, 0], mean_eff], 1))
+
+    with span("map.claims"):
+        claim, loc_claim, claimed = registration.claim_with_tables(
+            tables, grid, points, valid, cfg.patch.res, out_fill=B)
 
     # ---- 4. ONE shared sort serves the banks, the patch means, the
     # pending append and the counters: claimed points into segment
     # `claim` in centre-out order, unclaimed storable points into segment
     # B + home gp_index in arrival order, the rest last
-    home_gid = torch.where(
-        lin_valid != FILL,
-        key_to_leaf[torch.clamp(lin_valid, 0, nc - 1).long()], -1)
-    created = state.created | becomes
-    store = (~claimed & valid & in_box & (home_gid >= 0)
-             & ~created[torch.clamp(home_gid, min=0).long()])
-    d2c = loc_claim[:, 1] ** 2 + loc_claim[:, 2] ** 2     # 0 for unclaimed
-    seg_all = torch.where(claimed, claim,
-                          torch.where(store, B + home_gid, 2 * B)).to(I32)
-    # payload columns: u v d | r g b | world x y z
-    payload = torch.cat([loc_claim[:, 1:], loc_claim[:, :1], colors.to(dt),
-                         points], 1)
-    (srt,), starts2, seg_i = patches_mod.sort_by_claim(
-        seg_all, seg_all < 2 * B, (payload,), 2 * B, rank=d2c)
-    counts_b = starts2[1:B + 1] - starts2[:B]             # [B]
-    # per-patch claimed sums from one prefix sum over the sorted payload,
-    # in float64 along the contiguous dimension (as build_patches)
-    Z = torch.cumsum(srt[:, 2:6].double().T.contiguous(), dim=1)
-    Z = torch.cat([torch.zeros((4, 1), dtype=Z.dtype, device=dev), Z], 1)
-    seg_sums = (Z[:, starts2[1:B + 1].long()]
-                - Z[:, starts2[:B].long()]).T.to(dt)        # [B, 4]
-    cur_cnt = counts_b.to(dt)
+    with span("map.sort_banks"):
+        home_gid = torch.where(
+            lin_valid != FILL,
+            key_to_leaf[torch.clamp(lin_valid, 0, nc - 1).long()], -1)
+        created = state.created | becomes
+        store = (~claimed & valid & in_box & (home_gid >= 0)
+                 & ~created[torch.clamp(home_gid, min=0).long()])
+        d2c = loc_claim[:, 1] ** 2 + loc_claim[:, 2] ** 2     # 0 for unclaimed
+        seg_all = torch.where(claimed, claim,
+                              torch.where(store, B + home_gid, 2 * B)).to(I32)
+        # payload columns: u v d | r g b | world x y z
+        payload = torch.cat([loc_claim[:, 1:], loc_claim[:, :1], colors.to(dt),
+                             points], 1)
+        (srt,), starts2, seg_i = patches_mod.sort_by_claim(
+            seg_all, seg_all < 2 * B, (payload,), 2 * B, rank=d2c)
+        counts_b = starts2[1:B + 1] - starts2[:B]             # [B]
+        # per-patch claimed sums from one prefix sum over the sorted payload,
+        # in float64 along the contiguous dimension (as build_patches)
+        Z = torch.cumsum(srt[:, 2:6].double().T.contiguous(), dim=1)
+        Z = torch.cat([torch.zeros((4, 1), dtype=Z.dtype, device=dev), Z], 1)
+        seg_sums = (Z[:, starts2[1:B + 1].long()]
+                    - Z[:, starts2[:B].long()]).T.to(dt)        # [B, 4]
+        cur_cnt = counts_b.to(dt)
 
-    # pending evidence of the patches created now joins their plane means
-    # (transform_to_new, src/gp_mapping.cpp:260-281); zero elsewhere
-    pend_valid = ((torch.arange(Pp, device=dev)[None, :]
-                   < state.pend_count[:, None]) & becomes[:, None])
-    pend_loc = torch.matmul(state.pend_pts - mean_eff[:, None, :],
-                            rot_eff)                      # R^T rel, [B,Pp,3]
-    pend_clip = ((torch.abs(pend_loc[..., 1]) <= half)
-                 & (torch.abs(pend_loc[..., 2]) <= half) & pend_valid)
-    pf = pend_clip.to(dt)
-    tot = torch.clamp(cur_cnt + pf.sum(1), min=1.0)
-    mn = (seg_sums[:, 0] + torch.sum(pend_loc[..., 0] * pf, 1)) / tot
-    cmn = (seg_sums[:, 1:] + torch.sum(state.pend_cols * pf[..., None], 1)) \
-        / tot[:, None]
+        # pending evidence of the patches created now joins their plane means
+        # (transform_to_new, src/gp_mapping.cpp:260-281); zero elsewhere
+        pend_valid = ((torch.arange(Pp, device=dev)[None, :]
+                       < state.pend_count[:, None]) & becomes[:, None])
+        pend_loc = torch.matmul(state.pend_pts - mean_eff[:, None, :],
+                                rot_eff)                  # R^T rel, [B,Pp,3]
+        pend_clip = ((torch.abs(pend_loc[..., 1]) <= half)
+                     & (torch.abs(pend_loc[..., 2]) <= half) & pend_valid)
+        pf = pend_clip.to(dt)
+        tot = torch.clamp(cur_cnt + pf.sum(1), min=1.0)
+        mn = (seg_sums[:, 0] + torch.sum(pend_loc[..., 0] * pf, 1)) / tot
+        cmn = (seg_sums[:, 1:]
+               + torch.sum(state.pend_cols * pf[..., None], 1)) \
+            / tot[:, None]
 
-    # new patches: frame, centre moved along the normal, colour mean; old
-    # patches keep theirs (transform_to_old does not re-demean)
-    nb = becomes[:, None]
-    rotations = torch.where(becomes[:, None, None], R_fresh, state.rotations)
-    means = torch.where(nb, centers_by_id + mn[:, None] * R_fresh[:, :, 0],
-                        state.means)
-    rgb_means = torch.where(nb, cmn, state.rgb_means)
+        # new patches: frame, centre moved along the normal, colour mean; old
+        # patches keep theirs (transform_to_old does not re-demean)
+        nb = becomes[:, None]
+        rotations = torch.where(becomes[:, None, None], R_fresh,
+                                state.rotations)
+        means = torch.where(nb, centers_by_id + mn[:, None] * R_fresh[:, :, 0],
+                            state.means)
+        rgb_means = torch.where(nb, cmn, state.rgb_means)
 
-    # ---- 5. W mask: OR of the claimed cells and the new patches' pending
-    # cells (src/gp_mapping.cpp:242,290)
-    cell = patches_mod.grid_cell(loc_claim[:, 1:], res, sz)
-    pend_cell = patches_mod.grid_cell(pend_loc[..., 1:], res, sz)
-    W = _scatter_rows(state.W.reshape(-1), torch.cat([
-        torch.where(claimed, claim * G + cell, B * G),
-        torch.where(pend_clip, ar[:, None] * G + pend_cell, B * G).reshape(-1)
-    ]), True).reshape(B, G)
+        # ---- 5. W mask: OR of the claimed cells and the new patches' pending
+        # cells (src/gp_mapping.cpp:242,290)
+        cell = patches_mod.grid_cell(loc_claim[:, 1:], res, sz)
+        pend_cell = patches_mod.grid_cell(pend_loc[..., 1:], res, sz)
+        W = _scatter_rows(state.W.reshape(-1), torch.cat([
+            torch.where(claimed, claim * G + cell, B * G),
+            torch.where(pend_clip, ar[:, None] * G + pend_cell,
+                        B * G).reshape(-1)
+        ]), True).reshape(B, G)
 
-    # ---- 6. training banks: one [N, 6] scatter from the shared sort into
-    # [B, width] banks (row i of segment b lands at (b, i - starts[b] -
-    # rank0)), in centre-out insertion order; new patches demean depth by
-    # their mean, every patch demeans colour by its stored colour mean
-    Sp = mcfg.spill_bank
-    mn_eff = torch.where(becomes, mn, 0.0)
-    rank_row = torch.arange(N, dtype=I32, device=dev) \
-        - starts2[torch.clamp(seg_i, 0, 2 * B).long()]
-    is_claim_row = seg_i < B
+        # ---- 6. training banks: one [N, 6] scatter from the shared sort into
+        # [B, width] banks (row i of segment b lands at (b, i - starts[b] -
+        # rank0)), in centre-out insertion order; new patches demean depth by
+        # their mean, every patch demeans colour by its stored colour mean
+        Sp = mcfg.spill_bank
+        mn_eff = torch.where(becomes, mn, 0.0)
+        rank_row = torch.arange(N, dtype=I32, device=dev) \
+            - starts2[torch.clamp(seg_i, 0, 2 * B).long()]
+        is_claim_row = seg_i < B
 
-    def bank(rank0, width):
-        okb = is_claim_row & (rank_row >= rank0) & (rank_row < rank0 + width)
-        flat = _scatter_rows(
-            torch.zeros((B * width, 6), dtype=dt, device=dev),
-            torch.where(okb, seg_i * width + (rank_row - rank0), B * width),
-            torch.where(okb[:, None], srt[:, :6], 0.0))
-        m = (rank0 + torch.arange(width, dtype=I32, device=dev))[None, :] \
-            < torch.clamp(counts_b, max=rank0 + width)[:, None]
-        X = flat[:, :2].reshape(B, width, 2).contiguous()
-        Y = torch.where(m[..., None], (flat[:, 2].reshape(B, width)
-                                       - mn_eff[:, None])[..., None], 0.0)
-        C = torch.where(m[..., None], flat[:, 3:].reshape(B, width, 3)
-                        - rgb_means[:, None, :], 0.0)
-        return X, Y, C, m
+        def bank(rank0, width):
+            okb = is_claim_row & (rank_row >= rank0) \
+                & (rank_row < rank0 + width)
+            flat = _scatter_rows(
+                torch.zeros((B * width, 6), dtype=dt, device=dev),
+                torch.where(okb, seg_i * width + (rank_row - rank0),
+                            B * width),
+                torch.where(okb[:, None], srt[:, :6], 0.0))
+            m = (rank0 + torch.arange(width, dtype=I32, device=dev))[None, :] \
+                < torch.clamp(counts_b, max=rank0 + width)[:, None]
+            X = flat[:, :2].reshape(B, width, 2).contiguous()
+            Y = torch.where(m[..., None], (flat[:, 2].reshape(B, width)
+                                           - mn_eff[:, None])[..., None], 0.0)
+            C = torch.where(m[..., None], flat[:, 3:].reshape(B, width, 3)
+                            - rgb_means[:, None, :], 0.0)
+            return X, Y, C, m
 
-    banks = [bank(0, Pmax)] + ([bank(Pmax, Sp)] if Sp > 0 else [])
-    stage("sort_banks")
+        banks = [bank(0, Pmax)] + ([bank(Pmax, Sp)] if Sp > 0 else [])
 
-    dkp, ckp = default_params(cfg, dev)
-    dkp = dkp if depth_kp is None else depth_kp
-    d_s20 = cfg.depth_gp.s20 if depth_s20 is None else depth_s20
+    with span("map.train"):
+        dkp, ckp = default_params(cfg, dev)
+        dkp = dkp if depth_kp is None else depth_kp
+        d_s20 = cfg.depth_gp.s20 if depth_s20 is None else depth_s20
 
-    def train_pair(states, X, Y, C, M):
-        # the kernel for CUDA tensors, its plain version for CPU tensors;
-        # banks arrive in their insertion order
-        d = sogp_train.add_points_batch_cuda(dkp, cfg.depth_gp, states[0], X,
-                                             Y, M, s20=depth_s20,
-                                             eps_tol=depth_eps)
-        c = sogp_train.add_points_batch_cuda(ckp, cfg.rgb_gp, states[1], X, C,
-                                             M)
-        return d, c
+        def train_pair(states, X, Y, C, M):
+            # the kernel for CUDA tensors, its plain version for CPU tensors;
+            # banks arrive in their insertion order
+            d = sogp_train.add_points_batch_cuda(
+                dkp, cfg.depth_gp, states[0], X, Y, M, s20=depth_s20,
+                eps_tol=depth_eps)
+            c = sogp_train.add_points_batch_cuda(ckp, cfg.rgb_gp, states[1],
+                                                 X, C, M)
+            return d, c
 
-    # the main bank, then the spill bank (every insert: an all-false mask
-    # leaves a patch's state as it was), then the pending evidence of the
-    # patches created now (only when there are such patches)
-    gps = (state.depth_gp, state.rgb_gp)
-    for X, Y, C, m in banks:
-        gps = train_pair(gps, X, Y, C, m)
-    if n_changed > 0:
-        gps = train_pair(gps, pend_loc[..., 1:].contiguous(),
-                         (pend_loc[..., 0] - mn[:, None])[..., None],
-                         state.pend_cols - cmn[:, None, :], pend_clip)
-    stage("train")
+        # the main bank, then the spill bank (every insert: an all-false mask
+        # leaves a patch's state as it was), then the pending evidence of the
+        # patches created now (only when there are such patches)
+        gps = (state.depth_gp, state.rgb_gp)
+        for X, Y, C, m in banks:
+            gps = train_pair(gps, X, Y, C, m)
+        if n_changed > 0:
+            gps = train_pair(gps, pend_loc[..., 1:].contiguous(),
+                             (pend_loc[..., 0] - mn[:, None])[..., None],
+                             state.pend_cols - cmn[:, None, :], pend_clip)
     # failure containment, as in compressor.train
-    probes = patches_mod.prediction_grid(cfg.patch, dt, dev)[::5]
-    depth_gp, _ = sparse_gp.sanitize_batch(gps[0], dkp, d_s20,
-                                           max_pred=10.0 * cfg.patch.res,
-                                           probes=probes)
-    rgb_gp, _ = sparse_gp.sanitize_batch(gps[1], ckp, cfg.rgb_gp.s20,
-                                         max_pred=2.5e3, probes=probes)
-    stage("sanitize")
+    with span("map.sanitize"):
+        probes = patches_mod.prediction_grid(cfg.patch, dt, dev)[::5]
+        depth_gp, _ = sparse_gp.sanitize_batch(gps[0], dkp, d_s20,
+                                               max_pred=10.0 * cfg.patch.res,
+                                               probes=probes)
+        rgb_gp, _ = sparse_gp.sanitize_batch(gps[1], ckp, cfg.rgb_gp.s20,
+                                             max_pred=2.5e3, probes=probes)
 
     # ---- 7. pending buffers: consumed for created patches; unclaimed
     # points append to their home voxel's buffer straight from the shared
     # sort (rows of segment B + gid are contiguous and in arrival order)
-    pend_count0 = torch.where(becomes, 0, state.pend_count)
-    is_pend_row = (seg_i >= B) & (seg_i < 2 * B)
-    b_row = torch.clamp(seg_i - B, 0, B - 1)
-    slot = pend_count0[b_row.long()] + rank_row
-    okp = is_pend_row & (slot < Pp)
-    pflat = torch.where(okp, b_row * Pp + slot, B * Pp)
+    with span("map.pending"):
+        pend_count0 = torch.where(becomes, 0, state.pend_count)
+        is_pend_row = (seg_i >= B) & (seg_i < 2 * B)
+        b_row = torch.clamp(seg_i - B, 0, B - 1)
+        slot = pend_count0[b_row.long()] + rank_row
+        okp = is_pend_row & (slot < Pp)
+        pflat = torch.where(okp, b_row * Pp + slot, B * Pp)
 
-    def append(buf, cols):
-        buf = torch.where(becomes[:, None, None], 0.0, buf)
-        return _scatter_rows(buf.reshape(B * Pp, 3), pflat,
-                             torch.where(okp[:, None], cols, 0.0)
-                             ).reshape(B, Pp, 3)
+        def append(buf, cols):
+            buf = torch.where(becomes[:, None, None], 0.0, buf)
+            return _scatter_rows(buf.reshape(B * Pp, 3), pflat,
+                                 torch.where(okp[:, None], cols, 0.0)
+                                 ).reshape(B, Pp, 3)
 
-    pend_pts = append(state.pend_pts, srt[:, 6:9])
-    pend_cols = append(state.pend_cols, srt[:, 3:6])
-    pend_new = starts2[B + 1:2 * B + 1] - starts2[B:2 * B]
-    pend_count = torch.clamp(pend_count0 + pend_new, max=Pp).to(I32)
+        pend_pts = append(state.pend_pts, srt[:, 6:9])
+        pend_cols = append(state.pend_cols, srt[:, 3:6])
+        pend_new = starts2[B + 1:2 * B + 1] - starts2[B:2 * B]
+        pend_count = torch.clamp(pend_count0 + pend_new, max=Pp).to(I32)
 
-    # ---- truncation counters
-    info = {
-        "bank_dropped": torch.clamp(counts_b - (Pmax + Sp), min=0).sum()
-        .to(I32),
-        "pend_dropped": torch.clamp(pend_count0 + pend_new - Pp, min=0).sum()
-        .to(I32),
-        "patch_overflow": (is_new & overflow).sum().to(I32)}
-    stage("pending")
+        # ---- truncation counters
+        info = {
+            "bank_dropped": torch.clamp(counts_b - (Pmax + Sp), min=0).sum()
+            .to(I32),
+            "pend_dropped": torch.clamp(pend_count0 + pend_new - Pp,
+                                        min=0).sum().to(I32),
+            "patch_overflow": (is_new & overflow).sum().to(I32)}
 
     # ---- 8. free-space carving (every carve_stride-th ray)
-    cs = mcfg.carve_stride
-    free = _carve_free_space(state, key_to_leaf, created, rotations, means,
-                             state.free, points[::cs],
-                             (valid & claimed)[::cs], claim[::cs], cfg, mcfg,
-                             key_by_gid=key_by_gid)
-    stage("carve")
+    with span("map.carve"):
+        cs = mcfg.carve_stride
+        free = _carve_free_space(state, key_to_leaf, created, rotations,
+                                 means, state.free, points[::cs],
+                                 (valid & claimed)[::cs], claim[::cs], cfg,
+                                 mcfg, key_by_gid=key_by_gid)
 
     # the stored tables carry the final frames and means
     tables = tables._replace(nm=torch.cat([rotations[:, :, 0], means], 1))
@@ -636,44 +650,44 @@ def add_cloud_fused(state: MapState, points, colors, valid,
                     cfg: CompressorConfig, mcfg: MappingConfig,
                     rcfg: RegistrationConfig = RegistrationConfig(),
                     register_scan: bool = True, depth_kp=None,
-                    depth_s20=None, depth_eps=None,
-                    on_stage: Optional[Callable[[str], None]] = None):
+                    depth_s20=None, depth_eps=None):
     """gp_mapping::add_cloud (src/gp_mapping.cpp:12-35): transform by the
     accumulated pose, register (on every reg_stride-th point, the pose
     then carried onto the whole scan by the exactly composed translation),
     and insert unless drop_on_reg_cap drops a scan whose registration hit
     max_steps. Reads whether the map has patches (registration needs a
-    map; the first scan inserts with min_nbr 1).
+    map; the first scan inserts with min_nbr 1). The transform and the
+    registration are the span `map.register`, the insert map_insert's.
 
     Returns (state, diverged (bool), reg_steps (0-dim int32), info)."""
     dev = points.device
-    stage = on_stage or (lambda name: None)
-    pts = transforms.apply(points, state.R_cloud, state.t_cloud)
-    diverged = False
-    reg_steps = torch.zeros((), dtype=I32, device=dev)
-    has_map = bool(state.n_patches > 0)        # the scan's read
-    if register_scan and has_map:
-        k = mcfg.reg_stride
-        tables = state.tables._replace(nm=torch.cat(
-            [state.rotations[:, :, 0], state.means], 1))
-        rstate, sub = registration.register(
-            _map_view_gid(state, cfg), pts[::k], colors[::k], valid[::k], cfg,
-            rcfg, depth_kp=depth_kp, depth_s20=depth_s20, tables=tables)
-        pts = sub if k == 1 else transforms.apply(pts, rstate.R_cloud,
-                                                  rstate.t_exact)
-        state = state._replace(
-            R_cloud=transforms.matmul3(rstate.R_cloud, state.R_cloud),
-            t_cloud=state.t_cloud + rstate.t_cloud)
-        if mcfg.drop_on_reg_cap:
-            diverged = int(rstate.step_nbr) >= rcfg.max_steps
-        reg_steps = rstate.step_nbr
-    stage("register")
+    with span("map.register"):
+        pts = transforms.apply(points, state.R_cloud, state.t_cloud)
+        diverged = False
+        reg_steps = torch.zeros((), dtype=I32, device=dev)
+        has_map = bool(state.n_patches > 0)        # the scan's read
+        if register_scan and has_map:
+            k = mcfg.reg_stride
+            tables = state.tables._replace(nm=torch.cat(
+                [state.rotations[:, :, 0], state.means], 1))
+            rstate, sub = registration.register(
+                _map_view_gid(state, cfg), pts[::k], colors[::k], valid[::k],
+                cfg, rcfg, depth_kp=depth_kp, depth_s20=depth_s20,
+                tables=tables)
+            pts = sub if k == 1 else transforms.apply(pts, rstate.R_cloud,
+                                                      rstate.t_exact)
+            state = state._replace(
+                R_cloud=transforms.matmul3(rstate.R_cloud, state.R_cloud),
+                t_cloud=state.t_cloud + rstate.t_cloud)
+            if mcfg.drop_on_reg_cap:
+                diverged = int(rstate.step_nbr) >= rcfg.max_steps
+            reg_steps = rstate.step_nbr
     if diverged:                               # drop the scan (:22-27)
         return state, diverged, reg_steps, _zero_info(dev)
     min_nbr = mcfg.min_points_new_patch if has_map else 1
     state, info = map_insert(state, pts, colors, valid, cfg, mcfg, min_nbr,
                              depth_kp=depth_kp, depth_s20=depth_s20,
-                             depth_eps=depth_eps, on_stage=on_stage)
+                             depth_eps=depth_eps)
     return state, diverged, reg_steps, info
 
 

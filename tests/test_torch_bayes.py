@@ -34,6 +34,7 @@ from gp_compressor_tpu_torch.inference import hmc as thmc
 from gp_compressor_tpu_torch.inference import nuts as tnuts
 from gp_compressor_tpu_torch.inference import vi as tvi
 from gp_compressor_tpu_torch.io import convert
+from gp_compressor_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -195,7 +196,7 @@ def test_nuts_step_matches_jax(case):
         jlp, th, k, eps, jnp.asarray(inv), max_depth=5)))
     jt, ja, jn = f(jnp.asarray(THETA0), keys)
     draws = _stack_draws([nuts_step_draws(k, 3, 5) for k in keys])
-    tnuts.reset_counts()
+    profiling.reset_counters()
     tt, ta, tn = tnuts.nuts_step(
         tlp, T(THETA0), eps, T(inv).expand((2,) + inv.shape), max_depth=5,
         draws=draws)
@@ -206,8 +207,9 @@ def test_nuts_step_matches_jax(case):
         assert int(tn.max()) <= 2
     else:
         assert int(tn.min()) >= 3
-    assert tnuts.COUNTS["transitions"] == 2
-    assert int(tnuts.COUNTS["leapfrogs"]) == int(tn.sum())
+    c = profiling.counters()
+    assert c["nuts.transitions"] == 2
+    assert int(c["nuts.leapfrogs"]) == int(tn.sum())
 
 
 def test_lockstep_chains_match_single_chains():
@@ -403,11 +405,12 @@ def test_nuts_reads_once_per_block(monkeypatch):
     last block ends without a read at 2^max_depth - 1), and the step-size
     search at most once per block of its doublings."""
     _, tlp = _logposts()
-    tnuts.reset_counts()
+    profiling.reset_counters()
     reads = _count_reads(monkeypatch)
     cfg = HMCConfig(num_warmup=3, num_samples=3, max_tree_depth=5)
     tnuts.nuts_sample_chains(tlp, T(THETA0), cfg)
-    c = tnuts.COUNTS
+    c = {k[len("nuts."):]: v for k, v in profiling.counters().items()
+         if k.startswith("nuts.")}
     n_trans = cfg.num_warmup + cfg.num_samples
     assert len(reads) == c["reads"] + c["find_reads"] > 0
     assert c["transitions"] == 2 * n_trans

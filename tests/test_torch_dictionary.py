@@ -27,6 +27,7 @@ from gp_compressor_tpu.config import KSVDConfig as JKSVDConfig
 from gp_compressor_tpu.models import dictionary as jd
 from gp_compressor_tpu_torch.config import KSVDConfig
 from gp_compressor_tpu_torch.models import dictionary as td
+from gp_compressor_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -241,10 +242,10 @@ def _ksvd_runs(block):
     cfg = dict(cfg, atom_block=block)
     key = jax.random.key(0)
     jres = jd.ksvd(*_jnp(S, W, valid), JKSVDConfig(**cfg), key)
-    td.READS = 0
+    profiling.reset_counters()
     tres = td.ksvd(*_t(S, W, valid), KSVDConfig(**cfg),
                    draws=jax_draws(key, valid, JKSVDConfig(**cfg)))
-    return jres, tres, td.READS
+    return jres, tres, profiling.counters()["ksvd.reads"]
 
 
 @pytest.mark.parametrize("block", [1, 7])

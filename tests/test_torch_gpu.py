@@ -30,6 +30,7 @@ import torch
 from gp_compressor_tpu_torch.cuda_kernels import sogp_train
 from gp_compressor_tpu_torch.models import sparse_gp
 from gp_compressor_tpu_torch.testing import sogp_regimes
+from gp_compressor_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -56,6 +57,10 @@ def bench(dev):
     return ccfg, batch, compressor.default_params(ccfg, dev)
 
 
+def _launches():
+    return profiling.counters().get("sogp_train.launches", 0)
+
+
 def _on(dev, *arrays):
     return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
@@ -73,10 +78,10 @@ def _both(dev, cfg, X, Y, M, init=None, kp=None, **kw):
     kp = sogp_regimes.params(dev) if kp is None else kp
     if init is None:
         init = sparse_gp.init_batch(cfg, X.shape[0], device=dev)
-    n0 = sogp_train.LAUNCHES
+    n0 = _launches()
     out = sogp_train.add_points_batch_cuda(kp, cfg, init, X, Y, M, **kw)
     torch.cuda.synchronize()
-    assert sogp_train.LAUNCHES == n0 + 1
+    assert _launches() == n0 + 1
     ref = sogp_train.add_points_batch_plain(kp, cfg, init, X, Y, M, **kw)
     return ref, out
 
@@ -354,12 +359,12 @@ def test_hmc_calibrated_compress_launches_the_kernel(dev):
     pts, cols = (torch.from_numpy(a).to(dev)
                  for a in synthetic.room_cloud(n=4000, seed=1))
     valid = torch.ones(4000, dtype=torch.bool, device=dev)
-    n0 = sogp_train.LAUNCHES
+    n0 = _launches()
     comp, kp, s20, cal = compressor.compress_calibrated(
         pts, cols, valid, cfg, method="hmc", calib_patches=8,
         calib_points=32, calib_steps=20)
     torch.cuda.synchronize()
-    assert sogp_train.LAUNCHES == n0 + 2
+    assert _launches() == n0 + 2
     # the calibrated values leave the reference scale, and the RMSE bound
     # of the JAX package's calibrated test (tests/test_compressor.py)
     assert 0.0 < float(kp.sigmaf_sq) < 10.0 and 0.0 < s20 < 0.1
@@ -404,17 +409,17 @@ def test_ksvd_compress_reads_once_per_sweep(dev):
     """ksvd_compressor.compress on the card reads the device once per sweep
     of each ksvd call (at most iters + 1 per call), launches no training
     kernel, and decompresses to finite points."""
-    from gp_compressor_tpu_torch.models import dictionary
     from gp_compressor_tpu_torch.workloads import ksvd_compressor
 
     pts, cols, valid, cfg = _ksvd_cloud(dev)
-    n0 = sogp_train.LAUNCHES
-    dictionary.READS = 0
+    n0 = _launches()
+    r0 = profiling.counters().get("ksvd.reads", 0)
     comp = ksvd_compressor.compress(pts, cols, valid, cfg)
     torch.cuda.synchronize()
-    assert dictionary.READS == comp.depth.iters + comp.rgb.iters
+    assert profiling.counters()["ksvd.reads"] - r0 \
+        == comp.depth.iters + comp.rgb.iters
     assert 1 <= comp.depth.iters <= 8 and 1 <= comp.rgb.iters <= 8
-    assert sogp_train.LAUNCHES == n0
+    assert _launches() == n0
     assert ksvd_compressor.rms_error(comp) < 0.08
     w, c, ok = ksvd_compressor.decompress(comp)
     assert torch.isfinite(w[ok]).all() and torch.isfinite(c).all()
@@ -486,9 +491,9 @@ def test_cli_runs_on_the_card_by_default(dev, tmp_path, capsys):
     argv = ["--n-points", "20000", "--res", "0.3", "--sz", "10",
             "--max-patches", "512", "--max-ppp", "64"]
     ckpt = str(tmp_path / "c.npz")
-    sogp_train.LAUNCHES = 0
+    n0 = _launches()
     cli.main(["gp-compress", *argv, "--checkpoint", ckpt])
-    assert sogp_train.LAUNCHES == 2
+    assert _launches() == n0 + 2
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "Size of original point cloud: 20000"
     cfg = cli._gp_config(argparse.Namespace(

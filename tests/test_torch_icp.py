@@ -38,6 +38,7 @@ from gp_compressor_tpu.workloads import registration as jreg
 from gp_compressor_tpu_torch import config as tcfg
 from gp_compressor_tpu_torch.geometry import transforms as ttf
 from gp_compressor_tpu_torch.io import convert
+from gp_compressor_tpu_torch.utils import profiling
 from gp_compressor_tpu_torch.utils import synthetic as tsyn
 from gp_compressor_tpu_torch.workloads import compressor as tcomp
 from gp_compressor_tpu_torch.workloads import icp as ticp
@@ -74,16 +75,20 @@ def _icp_case():
     return cfg, jc, scan, pts[half:].astype(np.float64)
 
 
+def _reads():
+    return profiling.counters().get("icp.reads", 0)
+
+
 def test_icp_register_matches_jax():
     cfg, jc, scan, truth = _icp_case()
     valid = np.ones(scan.shape[0], bool)
     jres = jicp.icp_register(jc, jnp.asarray(scan), jnp.asarray(valid), cfg)
     tc = convert.compressed_from_numpy(_asdict(jc), device="cpu")
-    ticp.READS = 0
+    profiling.reset_counters()
     tres = ticp.icp_register(tc, T(scan), T(valid),
                              convert.compressor_config_from_dict(
                                  dataclasses.asdict(cfg)))
-    assert tres.iters == int(jres.iters) and ticp.READS == tres.iters
+    assert tres.iters == int(jres.iters) == _reads()
     assert int(tres.n_matched) == int(jres.n_matched) > 1000
     for a, b in ((tres.R, jres.R), (tres.t, jres.t),
                  (tres.rms_residual, jres.rms_residual)):
@@ -103,11 +108,11 @@ def test_icp_stops_at_max_iters_and_on_tolerance():
     valid = torch.ones(scan.shape[0], dtype=torch.bool)
     for kw, iters in ((dict(max_iters=2), 2), (dict(tol=1.0), 1),
                       (dict(max_iters=0), 0)):
-        ticp.READS = 0
+        profiling.reset_counters()
         res = ticp.icp_register(tc, T(scan), valid, tcf, **kw)
         j = jicp.icp_register(jc, jnp.asarray(scan),
                               jnp.asarray(valid.numpy()), cfg, **kw)
-        assert res.iters == int(j.iters) == iters == ticp.READS
+        assert res.iters == int(j.iters) == iters == _reads()
         np.testing.assert_allclose(res.t.numpy(), np.asarray(j.t), atol=1e-9)
 
 

@@ -19,8 +19,8 @@ against the JAX package on the CPU.
     relative;
     add_points_batch(keys=perm) against JAX fed the same keys; the port's
     SerialSOGP copy equal to JAX's.
-  * profiling: PhaseTimer / MetricLogger output in JAX's format, a CPU
-    trace written; viz: PNG and SVG files byte-identical.
+  * profiling: spans, counts and the Chrome trace that carries the
+    spans; viz: PNG and SVG files byte-identical.
 """
 
 import functools
@@ -46,7 +46,6 @@ from gp_compressor_tpu.models import oracle as joracle
 from gp_compressor_tpu.models import sparse_gp as jsg
 from gp_compressor_tpu.ops import noise as jnoise
 from gp_compressor_tpu.ops.kernels import RBFParams as JRBF
-from gp_compressor_tpu.utils import profiling as jprof
 from gp_compressor_tpu.utils import synthetic
 from gp_compressor_tpu.utils import viz as jviz
 from gp_compressor_tpu.workloads import compressor as jcomp
@@ -529,40 +528,58 @@ def test_serial_oracle_copy_matches_jax():
 
 # ---- profiling and viz -----------------------------------------------------
 
-def test_profiling_matches_jax_format(tmp_path, capsys):
-    timers = []
-    for mod, x in ((jprof, jnp.ones(3)), (tprof, torch.ones(3))):
-        t = mod.PhaseTimer()
-        for name in ("a", "b", "a"):
-            with t.phase(name, sync=lambda: x):
-                pass
-        timers.append(t)
-    assert timers[0].counts == timers[1].counts == {"a": 2, "b": 1}
-    assert list(timers[1].report()) == list(timers[0].report())
-    assert all(round(v, 4) == v for v in timers[1].report().values())
-    assert isinstance(tprof.device_sync(torch.ones(2), (torch.zeros(1),)),
-                      float)
-    lines = []
-    for mod, v in ((jprof, jnp.asarray(2.5)), (tprof, torch.tensor(2.5))):
-        path = str(tmp_path / f"{mod.__name__}.jsonl")
-        log = mod.MetricLogger(path)
-        log.log(loss=v, step=3, tag="x")
-        log.close()
-        with open(path) as f:
-            rec = json.loads(f.read())
-        lines.append({k: rec[k] for k in rec if k != "t"})
-        assert isinstance(rec["t"], float)
-        mod.MetricLogger().log(loss=v)
-    assert lines[0] == lines[1] == {"loss": 2.5, "step": 3, "tag": "x"}
-    out = capsys.readouterr().out.splitlines()
-    assert [json.loads(o)["loss"] for o in out] == [2.5, 2.5]
+def test_profiling_matches_jax_format(tmp_path):
+    """The port's tracer (it replaced the phase timer and the JSONL logger
+    ported from the JAX package): spans record nothing with tracing off,
+    nest with tracing on (context manager and decorator, one request per
+    outermost span), counts are totals and attach to the innermost span,
+    and `trace` writes a Chrome trace that holds the spans as host ranges
+    in the function scope."""
+    @tprof.span("outer")
+    def outer(x):
+        with tprof.span("inner"):
+            tprof.count("t.items", 2)
+        tprof.count("t.items")
+        return x + 1
+
+    tprof.take()
+    tprof.reset_counters()
+    assert outer(1) == 2 and tprof.take() == []
+    assert tprof.counters() == {"t.items": 3}
+    tprof.tracing(True)
+    try:
+        outer(1)
+        outer(2)
+    finally:
+        tprof.tracing(False)
+    recs = tprof.take()
+    assert [(r.name, r.request) for r in recs] == [
+        ("inner", 0), ("outer", 0), ("inner", 1), ("outer", 1)]
+    by_id = {r.id: r for r in recs}
+    assert [by_id[r.parent].name if r.parent is not None else None
+            for r in recs] == ["outer", None, "outer", None]
+    assert all(r.start <= r.end for r in recs)
+    assert by_id[recs[0].parent].start <= recs[0].start
+    assert recs[0].end <= by_id[recs[0].parent].end
+    assert [r.counts for r in recs] == [{"t.items": 2}, {"t.items": 1}] * 2
+    assert tprof.counters() == {"t.items": 9}
+    tprof.reset_counters()
+    assert tprof.counters() == {}
+
     with tprof.trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64).sum()
+        with tprof.span("traced.block"):
+            torch.ones(64).sum()
     assert prof is not None
+    assert [r.name for r in tprof.take()] == ["traced.block"]
     with open(tmp_path / "trace" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("name") == "traced.block"]
+    assert [e.get("cat") for e in ranges] == ["cpu_op"]
     with tprof.trace(None) as prof:
         assert prof is None
+    with tprof.span("off"):
+        pass
+    assert tprof.take() == []
 
 
 def test_viz_files_byte_identical(tmp_path):
