@@ -9,8 +9,12 @@ theta parameterization: unconstrained logs, theta = (ln sigmaf_sq, ln l_sq,
 ln s20), with any leading batch dims (the starts of the multi-start ascent
 and the chains of the sampler are one batch dim). The ascents and the
 sampler are Python loops over steps that never read the device: each step
-is queued on the stream. The sampler's randomness is a `torch.Generator`
-(seed 0 when None) or the draws themselves (`HMCDraws`).
+is queued on the stream. On the card the MAP ascent of a `PatchLogpost`
+is replayed as one CUDA graph from its second call of a shape on (see
+`_ascend`); it counts `calibration.eager_ascents`,
+`calibration.graph_captures` and `calibration.graph_replays`. The
+sampler's randomness is a `torch.Generator` (seed 0 when None) or the
+draws themselves (`HMCDraws`).
 
 With `mesh=` (a (data, chain) `DeviceMesh`, see `parallel.mesh`) the
 multi-start ascent and the chains are cut over `chain`: each rank runs its
@@ -21,6 +25,8 @@ what a single run draws.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -33,7 +39,7 @@ from gp_compressor_tpu_torch.inference.nuts import (_generator, _safe_vag,
 from gp_compressor_tpu_torch.ops import linalg_f32
 from gp_compressor_tpu_torch.ops.kernels import sqdist
 from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
-from gp_compressor_tpu_torch.utils.profiling import span
+from gp_compressor_tpu_torch.utils.profiling import count, span
 
 
 def gp_marginal_loglik(theta: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
@@ -73,30 +79,54 @@ def gp_marginal_loglik(theta: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
                        torch.full_like(ll, -torch.inf), ll)
 
 
-def make_patch_logpost(X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-                       prior_mean=(4.6, 0.0, -2.3), prior_std=3.0,
-                       noise_floor_rel: Optional[float] = None
-                       ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Posterior over shared hyperparameters given a bank of patches
-    X: [B, n, d], y: [B, n], mask: [B, n]. The returned function maps
-    theta [..., 3] to [...]. The prior centers on the reference constants
-    (sigmaf^2 100, l^2 1, s20 0.1). noise_floor_rel: None picks 1e-4 for
-    float32 inputs (the float32 conditioning floor) and 0 for float64."""
-    pm = torch.tensor(prior_mean, dtype=X.dtype, device=X.device)
-    if noise_floor_rel is None:
-        noise_floor_rel = 1e-4 if X.dtype == torch.float32 else 0.0
+class PatchLogpost:
+    """The posterior over shared hyperparameters given a bank of patches
+    X: [B, n, d], y: [B, n], mask: [B, n]: called on theta [..., 3], it
+    returns [...]. It carries its bank and its constants (prior_mean,
+    prior_std, noise_floor_rel), which is what lets the MAP ascent replay
+    a CUDA graph over a new bank of the same shapes."""
 
-    def logpost(theta):
-        ll = torch.sum(gp_marginal_loglik(theta[..., None, :], X, y, mask,
-                                          noise_floor_rel), dim=-1)
-        lp = torch.sum(-0.5 * ((theta - pm) / prior_std) ** 2, dim=-1)
+    def __init__(self, X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                 prior_mean, prior_std, noise_floor_rel: float):
+        self.X, self.y, self.mask = X, y, mask
+        self.prior_mean, self.prior_std = prior_mean, prior_std
+        self.noise_floor_rel = noise_floor_rel
+        self.pm = torch.tensor(prior_mean, dtype=X.dtype, device=X.device)
+
+    def constants(self) -> tuple:
+        return (tuple(float(v) for v in self.prior_mean),
+                float(self.prior_std), float(self.noise_floor_rel))
+
+    def on_bank(self, X, y, mask) -> "PatchLogpost":
+        """The same posterior over another bank."""
+        return PatchLogpost(X, y, mask, self.prior_mean, self.prior_std,
+                            self.noise_floor_rel)
+
+    def __call__(self, theta: torch.Tensor) -> torch.Tensor:
+        ll = torch.sum(gp_marginal_loglik(theta[..., None, :], self.X,
+                                          self.y, self.mask,
+                                          self.noise_floor_rel), dim=-1)
+        lp = torch.sum(-0.5 * ((theta - self.pm) / self.prior_std) ** 2,
+                       dim=-1)
         out = ll + lp
         # a factorization that fails where the gate did not foresee it
         # makes the point rejected instead of poisoning the ascent
         return torch.where(torch.isfinite(out), out,
                            torch.full_like(out, -torch.inf))
 
-    return logpost
+
+def make_patch_logpost(X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                       prior_mean=(4.6, 0.0, -2.3), prior_std=3.0,
+                       noise_floor_rel: Optional[float] = None
+                       ) -> PatchLogpost:
+    """Posterior over shared hyperparameters given a bank of patches
+    X: [B, n, d], y: [B, n], mask: [B, n]. The returned callable maps
+    theta [..., 3] to [...]. The prior centers on the reference constants
+    (sigmaf^2 100, l^2 1, s20 0.1). noise_floor_rel: None picks 1e-4 for
+    float32 inputs (the float32 conditioning floor) and 0 for float64."""
+    if noise_floor_rel is None:
+        noise_floor_rel = 1e-4 if X.dtype == torch.float32 else 0.0
+    return PatchLogpost(X, y, mask, prior_mean, prior_std, noise_floor_rel)
 
 
 class AdamState(NamedTuple):
@@ -125,13 +155,14 @@ def adam_update(g: torch.Tensor, state: AdamState, lr: float,
         AdamState(count, mu, nu)
 
 
-def _ascend(vag: Callable, theta: torch.Tensor, steps: int, lr: float):
+def _steps(vag: Callable, theta: torch.Tensor, steps: int, lr: float,
+           mark):
     """Adam ascent of the value vag returns; (theta, trace [steps, ...]).
-    Each step (value, gradient, update) is a `calibration.step` span."""
+    Each step (value, gradient, update) runs inside the context `mark`."""
     state = adam_init(theta)
     trace = []
     for _ in range(steps):
-        with span("calibration.step"):
+        with mark:
             lp, g = vag(theta)
             upd, state = adam_update(-g, state, lr)
             theta = theta + upd
@@ -139,11 +170,82 @@ def _ascend(vag: Callable, theta: torch.Tensor, steps: int, lr: float):
     return theta, torch.stack(trace)
 
 
+# Ascents of a PatchLogpost on the card replay a CUDA graph: the first call
+# of a key runs eager (and warms cuBLAS and cuSOLVER up), the second
+# captures the unrolled ascent and replays it, later calls replay. The
+# cache is the process's, since every calibration builds a new posterior
+# over a new bank of the same shapes. It holds GRAPH_KEYS keys, the least
+# recently used dropped first; a key seen once maps to None.
+GRAPH_KEYS = 4
+_graphs = collections.OrderedDict()
+
+
+def ascent_key(logpost: PatchLogpost, theta: torch.Tensor, steps: int,
+               lr: float) -> tuple:
+    """What an ascent's graph depends on: the bank's shapes, dtypes and
+    device, the starts' shape and dtype, steps, lr and the posterior's
+    constants."""
+    bank = (logpost.X, logpost.y, logpost.mask)
+    return (tuple(tuple(t.shape) for t in bank),
+            tuple(t.dtype for t in bank), logpost.X.device,
+            tuple(theta.shape), theta.dtype, int(steps), float(lr),
+            logpost.constants())
+
+
+class _AscentGraph:
+    """One ascent captured as a CUDA graph over static copies of the bank
+    and of the starts, in its own memory pool."""
+
+    def __init__(self, logpost: PatchLogpost, theta: torch.Tensor,
+                 steps: int, lr: float):
+        self.bank = tuple(torch.empty_like(t) for t in
+                          (logpost.X, logpost.y, logpost.mask))
+        self.theta0 = torch.empty_like(theta)
+        # kept: the graph reads its prior mean
+        self.logpost = logpost.on_bank(*self.bank)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = _steps(_safe_vag(self.logpost), self.theta0, steps,
+                              lr, contextlib.nullcontext())
+        count("calibration.graph_captures")
+
+    def __call__(self, logpost: PatchLogpost, theta: torch.Tensor):
+        with torch.no_grad():
+            for dst, src in zip(self.bank + (self.theta0,),
+                                (logpost.X, logpost.y, logpost.mask, theta)):
+                dst.copy_(src)
+            self.graph.replay()
+            count("calibration.graph_replays")
+            # the next replay overwrites the graph's outputs
+            return tuple(t.clone() for t in self.out)
+
+
+def _ascend(logpost: Callable, theta: torch.Tensor, steps: int, lr: float):
+    """Adam ascent of logpost (sanitized, see _safe_vag) from theta;
+    (theta, trace [steps, ...]). A PatchLogpost on the card, outside any
+    capture, takes the graph of its key (see _graphs); every other
+    ascent runs eager, each step a `calibration.step` span."""
+    if (isinstance(logpost, PatchLogpost) and logpost.X.is_cuda
+            and theta.is_cuda and not torch.cuda.is_current_stream_capturing()):
+        key = ascent_key(logpost, theta, steps, lr)
+        if key in _graphs:
+            _graphs.move_to_end(key)
+            if _graphs[key] is None:
+                _graphs[key] = _AscentGraph(logpost, theta, steps, lr)
+            return _graphs[key](logpost, theta)
+        _graphs[key] = None
+        if len(_graphs) > GRAPH_KEYS:
+            _graphs.popitem(last=False)
+    count("calibration.eager_ascents")
+    return _steps(_safe_vag(logpost), theta, steps, lr,
+                  span("calibration.step"))
+
+
 def map_estimate(logpost: Callable, theta0: torch.Tensor, steps: int = 200,
                  lr: float = 5e-2):
     """Type-II MAP hyperparameter fit by Adam ascent on the patch-bank log
     posterior. Returns (theta, logpost trace [steps])."""
-    return _ascend(_safe_vag(logpost), theta0, steps, lr)
+    return _ascend(logpost, theta0, steps, lr)
 
 
 # log-space start offsets for the multi-start ascent: reference-scale,
@@ -168,7 +270,7 @@ def map_estimate_multi(logpost: Callable, theta0: torch.Tensor,
                             starts[1:]])
     if mesh is not None:
         starts = mesh_lib.shard_leading(starts, mesh, n_starts, "chain")
-    thetas, _ = _ascend(_safe_vag(logpost), starts, steps, lr)
+    thetas, _ = _ascend(logpost, starts, steps, lr)
     with torch.no_grad():
         lps = logpost(thetas)
     if mesh is not None:

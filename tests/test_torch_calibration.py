@@ -2,7 +2,10 @@
 CPU unless a case says otherwise: the kernel's hyperparameter derivative,
 the small-matrix linear algebra, the exact GP, the marginal posterior, the
 Adam update, the MAP ascents, the calibration subsample, and the
-calibrated round trip (staged and in one call) on a small room cloud."""
+calibrated round trip (staged and in one call) on a small room cloud.
+Besides: the posterior's callable object against the closure it
+replaced, the ascents' eager path on the CPU, and the key of the card's
+ascent graphs."""
 
 import collections
 import dataclasses
@@ -25,12 +28,14 @@ from gp_compressor_tpu.utils import synthetic
 from gp_compressor_tpu.workloads import compressor as jcomp
 from gp_compressor_tpu_torch import config as tcfg
 from gp_compressor_tpu_torch.inference import hmc as thmc
+from gp_compressor_tpu_torch.inference import nuts
 from gp_compressor_tpu_torch.io import convert
 from gp_compressor_tpu_torch.models import exact_gp as texact
 from gp_compressor_tpu_torch.ops import kernels as tkern
 from gp_compressor_tpu_torch.ops import linalg_f32 as tla
 from gp_compressor_tpu_torch.ops.kernels import RBFParams as TRBF
 from gp_compressor_tpu_torch.testing import sogp_regimes
+from gp_compressor_tpu_torch.utils import profiling
 from gp_compressor_tpu_torch.workloads import compressor as tcomp
 
 torch.set_num_threads(1)
@@ -269,6 +274,106 @@ def test_map_estimate_multi_matches_jax(case):
         _, free = thmc.map_estimate_multi(
             tlp, torch.tensor(THETA0, dtype=torch.float64), **kw)
         np.testing.assert_allclose(tl[1:], free.numpy()[1:], rtol=1e-12)
+
+
+def _closure_logpost(X, y, mask, prior_mean=(4.6, 0.0, -2.3), prior_std=3.0,
+                     noise_floor_rel=None):
+    """make_patch_logpost as a closure, as the port had it before the
+    callable object."""
+    pm = torch.tensor(prior_mean, dtype=X.dtype, device=X.device)
+    if noise_floor_rel is None:
+        noise_floor_rel = 1e-4 if X.dtype == torch.float32 else 0.0
+
+    def logpost(theta):
+        ll = torch.sum(thmc.gp_marginal_loglik(theta[..., None, :], X, y,
+                                               mask, noise_floor_rel), dim=-1)
+        lp = torch.sum(-0.5 * ((theta - pm) / prior_std) ** 2, dim=-1)
+        out = ll + lp
+        return torch.where(torch.isfinite(out), out,
+                           torch.full_like(out, -torch.inf))
+
+    return logpost
+
+
+@pytest.mark.parametrize("prior", [{}, dict(prior_mean=(0.0, -1.0, -4.0),
+                                            prior_std=4.0)],
+                         ids=["default", "own_prior"])
+@pytest.mark.parametrize("f64", [True, False], ids=["float64", "float32"])
+def test_patch_logpost_object_matches_closure_bitwise(f64, prior):
+    """The callable object gives the closure's values and gradients bit
+    for bit, at each theta of THETAS (the last one gated) and batched."""
+    npdt = np.float64 if f64 else np.float32
+    tdt = torch.float64 if f64 else torch.float32
+    bank = tuple(T(a) for a in _bank(dtype=npdt))
+    obj = thmc.make_patch_logpost(*bank, **prior)
+    assert isinstance(obj, thmc.PatchLogpost)
+    assert obj.X is bank[0] and obj.y is bank[1] and obj.mask is bank[2]
+    clo = _closure_logpost(*bank, **prior)
+    for theta in THETAS + [THETAS]:
+        th = torch.tensor(theta, dtype=tdt)
+        (vo, go), (vc, gc) = (nuts._vag(f, th) for f in (obj, clo))
+        assert torch.equal(vo, vc) and torch.equal(go, gc)
+
+
+def _eager_count():
+    c = profiling.counters()
+    return tuple(c.get(f"calibration.{k}", 0)
+                 for k in ("eager_ascents", "graph_captures", "graph_replays"))
+
+
+@pytest.mark.parametrize("fn", ["map_estimate", "map_estimate_multi"])
+def test_map_ascents_on_cpu_run_eager(fn):
+    """On the CPU every ascent runs eager, repeated calls included: each
+    call counts one eager ascent and no graph, and the results equal the
+    JAX package's as before."""
+    jlp, tlp = _logposts()
+    th0 = torch.tensor(THETA0, dtype=torch.float64)
+    kw = dict(steps=20, lr=0.1) if fn == "map_estimate" else dict(
+        steps=20, lr=0.1, n_starts=4)
+    want = getattr(jhmc, fn)(jlp, jnp.asarray(THETA0), **kw)
+    before = _eager_count()
+    for _ in range(3):
+        got = getattr(thmc, fn)(tlp, th0, **kw)
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   atol=1e-6)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   rtol=1e-7)
+    after = _eager_count()
+    assert (after[0] - before[0], after[1:]) == (3, before[1:])
+    assert not thmc._graphs
+
+
+KEY_CHANGES = {
+    "steps": lambda b, th: (b, th, 41, 0.1),
+    "lr": lambda b, th: (b, th, 40, 0.05),
+    "starts": lambda b, th: (b, th.expand(4, 3), 40, 0.1),
+    "bank_rows": lambda b, th: ((b[0][:-1], b[1][:-1], b[2][:-1]), th, 40,
+                                0.1),
+    "bank_points": lambda b, th: (tuple(t[:, :-1] for t in b), th, 40, 0.1),
+    "dtype": lambda b, th: (tuple(t.float() for t in b), th.float(), 40,
+                            0.1),
+}
+
+
+@pytest.mark.parametrize("change", sorted(KEY_CHANGES))
+def test_ascent_key_separates_what_the_graph_depends_on(change):
+    """The graph key is a pure function of the ascent's shapes and
+    constants: the same for a bank of other values, another for each
+    change of steps, lr, the number of starts, the bank's shape or its
+    dtype, or the prior."""
+    bank = tuple(T(a) for a in _bank())
+    th = torch.tensor([THETA0], dtype=torch.float64)
+
+    def key(b, t, steps, lr, **prior):
+        return thmc.ascent_key(thmc.make_patch_logpost(*b, **prior), t,
+                               steps, lr)
+
+    base = key(bank, th, 40, 0.1)
+    assert key(bank, th, 40, 0.1) == base
+    other = tuple(t + 1.0 for t in bank)
+    assert key(other, th + 1.0, 40, 0.1) == base
+    assert key(bank, th, 40, 0.1, prior_std=4.0) != base
+    assert key(*KEY_CHANGES[change](bank, th)) != base
 
 
 FakeBatch = collections.namedtuple("FakeBatch", "X y mask")

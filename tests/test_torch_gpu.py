@@ -9,8 +9,11 @@ and one state non-zero off its active block, which takes the kernel's
 dense loop), and the kernel's inline division against IEEE division;
 then the Bayesian layer on the card against the CPU with the same draws
 in float64 (a NUTS transition, HMC steps, ADVI steps, an SMC refinement
-step against the small mapping case's map), and compress_calibrated
-(method="hmc") launching the kernel twice; the K-SVD codec (OMP and one
+step against the small mapping case's map), compress_calibrated
+(method="hmc") launching the kernel twice, and the MAP ascent's CUDA
+graph against the eager ascent (eager, then capture, then replay, at the
+benchmark's shapes; two banks and starts through one graph; gated and
+failed factorizations); the K-SVD codec (OMP and one
 outer sweep on the card against the CPU in float64 with the same draws,
 one stop-test read per sweep) and ICP on the card against the CPU; the
 native IO library's build on the card's machine, and the command line
@@ -371,6 +374,126 @@ def test_hmc_calibrated_compress_launches_the_kernel(dev):
     rmse = float(compressor.reconstruction_rmse(comp, cal, depth_kp=kp,
                                                 depth_s20=s20))
     assert rmse < 0.08
+
+
+@pytest.fixture(scope="module")
+def calib_bank(dev, bench):
+    """The bench cloud's calibration bank at the benchmark's shapes (32
+    patches x 64 points, float32) and its start theta [3]."""
+    from gp_compressor_tpu_torch.workloads import compressor
+
+    ccfg, batch, _ = bench
+    return compressor._calib_logpost(batch, ccfg, 32, 64, torch.float32)
+
+
+@pytest.fixture
+def ascent_graphs():
+    """The hmc module with an empty cache of ascent graphs."""
+    from gp_compressor_tpu_torch.inference import hmc
+
+    hmc._graphs.clear()
+    yield hmc
+    hmc._graphs.clear()
+
+
+def _graph_counts():
+    c = profiling.counters()
+    return [c.get(f"calibration.{k}", 0)
+            for k in ("eager_ascents", "graph_captures", "graph_replays")]
+
+
+def _opaque(logpost):
+    """The same posterior as an opaque callable, which always runs eager."""
+    return lambda theta: logpost(theta)
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("starts,steps", [(1, 40), (4, 150)],
+                         ids=["warm", "cold"])
+def test_map_ascent_runs_eager_then_captures_then_replays(
+        dev, calib_bank, ascent_graphs, starts, steps):
+    """Three multi-start ascents of one shape: the first eager (one
+    `calibration.step` span a step), the second captured and replayed,
+    the third replayed, each equal to the eager ascent."""
+    hmc = ascent_graphs
+    lp, th0 = calib_bank
+    kw = dict(steps=steps, lr=0.1, n_starts=starts)
+    want = hmc.map_estimate_multi(_opaque(lp), th0, **kw)
+    before = _graph_counts()
+    profiling.take()
+    profiling.tracing(True)
+    try:
+        runs = [hmc.map_estimate_multi(lp, th0, **kw) for _ in range(3)]
+    finally:
+        profiling.tracing(False)
+    torch.cuda.synchronize()
+    steps_seen = sum(r.name == "calibration.step" for r in profiling.take())
+    assert [b - a for a, b in zip(before, _graph_counts())] == [1, 1, 2]
+    assert steps_seen == steps
+    for got in runs:
+        _same(got, want)
+
+
+def test_map_ascent_graph_replays_each_bank(dev, calib_bank, ascent_graphs):
+    """Replays over two banks of one shape, from two starts: each gives the
+    eager ascent of its own bank and start, and the first result is
+    unchanged after the second replay."""
+    hmc = ascent_graphs
+    lp, th0 = calib_bank
+    lp2 = lp.on_bank(lp.X.flip(0), 2.0 * lp.y.flip(0), lp.mask.flip(0))
+    th2 = th0 + 0.5
+    kw = dict(steps=40, lr=0.1)
+    want = [hmc.map_estimate(_opaque(p), t, **kw)
+            for p, t in ((lp, th0), (lp2, th2))]
+    before = _graph_counts()
+    hmc.map_estimate(lp, th0, **kw)
+    first = hmc.map_estimate(lp, th0, **kw)
+    kept = [t.clone() for t in first]
+    second = hmc.map_estimate(lp2, th2, **kw)
+    assert [b - a for a, b in zip(before, _graph_counts())] == [1, 1, 2]
+    assert len(hmc._graphs) == 1
+    _same(first, want[0])
+    _same(second, want[1])
+    assert all(torch.equal(a, b) for a, b in zip(first, kept))
+    assert not torch.equal(first[0], second[0])
+
+
+@pytest.mark.parametrize("case", ["gated", "nan_point"])
+def test_map_ascent_graph_rejects_as_eager(dev, calib_bank, ascent_graphs,
+                                           case):
+    """Float64 bank, four starts. gated: the first start lies past the
+    condition gate, so its log posterior is -inf at every step and, with
+    a zero gradient, it never moves; the others ascend as eager. nan_point:
+    a NaN point fails every factorization, so every start stays put at
+    -inf."""
+    import math
+
+    hmc = ascent_graphs
+    lp, th0 = calib_bank
+    X, y, m = (t.double() for t in (lp.X, lp.y, lp.mask))
+    if case == "nan_point":
+        X[3, 0, 0] = math.nan
+    lp64 = hmc.make_patch_logpost(X, y, m)
+    th0 = th0.double()
+    past = torch.tensor([math.log(1e6), 0.0, math.log(1e-10)],
+                        dtype=torch.float64, device=dev)
+    starts = torch.stack([past, th0, th0 - 3.0, th0 + 1.0])
+    kw = dict(steps=40, lr=0.1)
+    want = hmc.map_estimate(_opaque(lp64), starts, **kw)
+    before = _graph_counts()
+    runs = [hmc.map_estimate(lp64, starts, **kw) for _ in range(3)]
+    assert [b - a for a, b in zip(before, _graph_counts())] == [1, 1, 2]
+    stuck = slice(None) if case == "nan_point" else slice(0, 1)
+    for theta, trace in runs:
+        _same((theta, trace), want)
+        assert torch.equal(theta[stuck], starts[stuck])
+        assert (trace[:, stuck] == -torch.inf).all()
+        if case == "gated":
+            assert torch.isfinite(trace[-1, 1:]).all()
 
 
 @pytest.mark.parametrize("block", [1, 16])

@@ -9,7 +9,9 @@ For each cell and seed it sets the cell's entry up (`portbench/entries/`)
 with the port's tracing on (`setup_program_s`: the seconds inside the
 set-up's outermost spans) and measures two closed-loop windows of
 `--seconds` (the benchmark's `runner.measure`), tracing off and on, the
-order alternating by seed: `points_per_s` of each. Then it sets the
+order alternating by seed: `points_per_s` of each, and the
+`calibration.*` counts made in each (eager ascents, graph captures and
+replays). Then it sets the
 first seed's entry up again and profiles the cell's profiled requests
 through the benchmark's own `trace.profile_requests`, twice with tracing
 off and twice on, in turns, and splits the last traced profile by layer
@@ -117,6 +119,7 @@ def _windows(entry, row, seconds, device, first_on: bool):
 
     for mode in ((True, False) if first_on else (False, True)):
         profiling.take()
+        before = profiling.counters()
         profiling.tracing(mode)
         gc.collect()
         gc.disable()
@@ -128,6 +131,9 @@ def _windows(entry, row, seconds, device, first_on: bool):
         row[f"points_per_s_tracing_{int(mode)}"] = win.units / win.seconds
         row[f"requests_tracing_{int(mode)}"] = win.requests
         row[f"records_tracing_{int(mode)}"] = len(profiling.take())
+        row[f"calibration_counts_tracing_{int(mode)}"] = {
+            k: v - before.get(k, 0) for k, v in profiling.counters().items()
+            if k.startswith("calibration.")}
 
 
 def _split(entry, row, pieces, device):
