@@ -25,10 +25,14 @@ twice once the residual is orthogonal to every unused atom): the solve
 returns non-finite coefficients instead of raising, and the row stops.
 
 JAX's `lax.while_loop` over sweeps is a host loop here: each sweep ends in
-one device-to-host read of its stop test (counted as `ksvd.reads`). The
-random data rows of the atom replacement are explicit draws (KSVDDraws),
-or come from a `torch.Generator`; the tests feed the draws JAX's keys
-make.
+one device-to-host read of its stop test (counted as `ksvd.reads`; the
+sweeps as `ksvd.sweeps`, the atom blocks they update as `ksvd.atom_blocks`).
+The random data rows of the atom replacement are explicit draws
+(KSVDDraws), or come from a `torch.Generator`; the tests feed the draws
+JAX's keys make.
+
+Each sweep's stages are spans: `ksvd.omp` (also the final encoding),
+`ksvd.sweep` and `ksvd.replace`.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gp_compressor_tpu_torch.config import KSVDConfig
-from gp_compressor_tpu_torch.utils.profiling import count
+from gp_compressor_tpu_torch.utils.profiling import count, span
 
 
 class OMPCode(NamedTuple):
@@ -245,6 +249,7 @@ def _atom_sweep(D, code: OMPCode, S, W, valid, cfg: KSVDConfig):
     R = (S - reconstruct(D, code)) * W * valid[:, None]    # [n, l]
     D = D.clone()
     I = code.I[None]
+    count("ksvd.atom_blocks", -(-K // blk))
     for j0 in range(0, K, blk):
         jb = torch.arange(j0, min(j0 + blk, K), device=dev)   # [b]
         hit = (I == jb[:, None, None]) & usek[None]            # [b, n, kmax]
@@ -279,15 +284,18 @@ def _ksvd_sweep(D, idx, S, W, valid, cfg: KSVDConfig):
     (ksvd_decomposition::decompose body). valid: [n] bool.
     Returns (D_next, code, err, mean_words)."""
     dt = S.dtype
-    code = omp_encode(D, S, W, valid, cfg)
+    with span("ksvd.omp"):
+        code = omp_encode(D, S, W, valid, cfg)
     kmax = cfg.words_max
     used = torch.arange(kmax, device=S.device)[None, :] < code.nw[:, None]
     usage = torch.zeros(cfg.dict_size, dtype=torch.int64,
                         device=S.device).index_add_(
         0, code.I.reshape(-1).long(), used.reshape(-1).to(torch.int64))
-    D2, code2, _ = _atom_sweep(D, code, S, W, valid, cfg)
+    with span("ksvd.sweep"):
+        D2, code2, _ = _atom_sweep(D, code, S, W, valid, cfg)
     err = masked_error(D2, code2, S, W, valid.to(dt))
-    D3 = _replace_unused(D2, usage, S, idx)
+    with span("ksvd.replace"):
+        D3 = _replace_unused(D2, usage, S, idx)
     return D3, code2, err, torch.mean((code.nw * valid).to(dt))
 
 
@@ -323,10 +331,12 @@ def ksvd(S: torch.Tensor, W: torch.Tensor, valid: torch.Tensor,
         if verbose:
             print(f"ksvd iter {it}: masked MSE {float(err):.6f}, "
                   f"mean words {float(mean_words):.2f}")
+        count("ksvd.sweeps")
         count("ksvd.reads")
         if bool(torch.abs(err - last) < cfg.stop_diff):
             break
         last = err
-    code = omp_encode(D, S, W, valid, cfg)
+    with span("ksvd.omp"):
+        code = omp_encode(D, S, W, valid, cfg)
     err = masked_error(D, code, S, W, valid.to(dt))
     return KSVDResult(D=D, code=code, error=err, iters=it)

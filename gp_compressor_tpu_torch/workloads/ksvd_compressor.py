@@ -11,6 +11,10 @@ The random data rows of the atom replacement come from a
 `torch.Generator` (seed 0 when none is given; depth draws first, then
 RGB) or from explicit draws, a (depth, RGB) pair of
 `dictionary.KSVDDraws`.
+
+Spans: `ksvd.compress` holds `ksvd.front_end` (the raster) and one
+`ksvd.depth` and one `ksvd.rgb` (each `dictionary.ksvd` call, whose
+sweeps have spans of their own); `ksvd.decompress` is the decompression.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from gp_compressor_tpu_torch.geometry import rotation
 from gp_compressor_tpu_torch.io.artifact import Artifact
 from gp_compressor_tpu_torch.models import dictionary
 from gp_compressor_tpu_torch.models.dictionary import KSVDResult
+from gp_compressor_tpu_torch.utils.profiling import span
 
 
 class KSVDCompressed(NamedTuple):
@@ -48,6 +53,7 @@ def rgb_problem(raster: patches_mod.RasterBatch, pvalid: torch.Tensor):
     return S, W, torch.cat([pvalid] * 3, dim=0)
 
 
+@span("ksvd.compress")
 def compress(points: torch.Tensor, colors: torch.Tensor, valid: torch.Tensor,
              cfg: CompressorConfig,
              generator: Optional[torch.Generator] = None,
@@ -55,21 +61,25 @@ def compress(points: torch.Tensor, colors: torch.Tensor, valid: torch.Tensor,
                                    dictionary.KSVDDraws]] = None,
              verbose: bool = False) -> KSVDCompressed:
     """pointcloud_compressor::save_compressed minus the file write."""
-    raster = patches_mod.build_raster_patches(points, colors, valid,
-                                              cfg.patch)
+    with span("ksvd.front_end"):
+        raster = patches_mod.build_raster_patches(points, colors, valid,
+                                                  cfg.patch)
     B = raster.S.shape[0]
     pvalid = torch.arange(B, device=points.device) < raster.n_leaves
     if draws is None and generator is None:
         generator = torch.Generator(device=points.device).manual_seed(0)
     dd, dc = (None, None) if draws is None else draws
-    depth = dictionary.ksvd(raster.S, raster.W.to(raster.S.dtype), pvalid,
-                            cfg.ksvd, generator=generator, draws=dd,
-                            verbose=verbose)
-    rgb = dictionary.ksvd(*rgb_problem(raster, pvalid), cfg.rgb_ksvd,
-                          generator=generator, draws=dc, verbose=verbose)
+    with span("ksvd.depth"):
+        depth = dictionary.ksvd(raster.S, raster.W.to(raster.S.dtype),
+                                pvalid, cfg.ksvd, generator=generator,
+                                draws=dd, verbose=verbose)
+    with span("ksvd.rgb"):
+        rgb = dictionary.ksvd(*rgb_problem(raster, pvalid), cfg.rgb_ksvd,
+                              generator=generator, draws=dc, verbose=verbose)
     return KSVDCompressed(raster=raster, depth=depth, rgb=rgb, cfg=cfg)
 
 
+@span("ksvd.decompress")
 def decompress(comp: KSVDCompressed):
     """pointcloud_decompressor::load_compressed minus the file read.
     Returns (points [B*G, 3], colors [B*G, 3], valid [B*G])."""

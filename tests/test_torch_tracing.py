@@ -1,8 +1,9 @@
 """The port's tracing (utils/profiling.py) on the CPU: the span tree of
 each request of the round trips, one `calibration.step` per Adam step,
-the mapping stream's stage spans, outputs bit-identical with tracing on
-and off, nothing recorded with tracing off (and nothing allocated by a
-span then), and counts attached to the innermost open span."""
+the mapping stream's stage spans, the K-SVD codec's spans and sweep
+counts, outputs bit-identical with tracing on and off, nothing recorded
+with tracing off (and nothing allocated by a span then), and counts
+attached to the innermost open span."""
 
 import dataclasses
 import math
@@ -15,7 +16,8 @@ from gp_compressor_tpu_torch import config as tcfg
 from gp_compressor_tpu_torch.inference import nuts
 from gp_compressor_tpu_torch.testing import mapping_case as case
 from gp_compressor_tpu_torch.utils import profiling, synthetic
-from gp_compressor_tpu_torch.workloads import compressor, mapping
+from gp_compressor_tpu_torch.workloads import compressor, ksvd_compressor
+from gp_compressor_tpu_torch.workloads import mapping
 
 N = 3000
 STEPS = 5
@@ -211,3 +213,64 @@ def test_mapping_stages_are_spans(traced):
     assert names == stages * 2
     assert int(st.n_patches) > 0
     assert math.isfinite(float(st.means[:int(st.n_patches)].sum()))
+
+
+def _ksvd_round_trip(seed=5):
+    """A tiny K-SVD compress and decompress: (compressed, decompressed)."""
+    cfg = dataclasses.replace(
+        _cfg(), ksvd=tcfg.KSVDConfig(dict_size=16, words_max=4, max_iters=4,
+                                     atom_block=4),
+        rgb_ksvd=dataclasses.replace(tcfg.rgb_ksvd_config(24, 6),
+                                     max_iters=3, atom_block=8))
+    pts, cols, valid, _ = _args(seed)
+    comp = ksvd_compressor.compress(pts, cols, valid, cfg,
+                                    generator=torch.Generator().manual_seed(0))
+    return comp, ksvd_compressor.decompress(comp)
+
+
+def test_ksvd_spans_and_sweep_counts(traced):
+    """compress: the raster's front end, then one span per K-SVD, each
+    holding (omp, sweep, replace) per sweep and the final encoding;
+    decompress its own request. `ksvd.sweeps` on each K-SVD's span equals
+    its sweeps, `ksvd.atom_blocks` on each sweep span its blocks."""
+    comp, _ = _ksvd_round_trip()
+    recs = profiling.take()
+    tree = _tree(recs)
+    assert len(tree) == 2
+    r0, r1 = sorted(tree)
+    sweep = [("ksvd.omp", None), ("ksvd.sweep", None), ("ksvd.replace", None)]
+
+    def ksvd_span(name, iters):
+        return [(name, "ksvd.compress")] + [
+            (s, name) for s, _ in sweep * iters + [("ksvd.omp", None)]]
+
+    want = ([("ksvd.compress", None), ("ksvd.front_end", "ksvd.compress")]
+            + [(s, "ksvd.front_end") for s in FRONT_END[:4]]
+            + ksvd_span("ksvd.depth", comp.depth.iters)
+            + ksvd_span("ksvd.rgb", comp.rgb.iters))
+    assert tree[r0] == want
+    assert tree[r1] == [("ksvd.decompress", None)]
+    by_name = {}
+    for r in recs:
+        by_name.setdefault(r.name, []).append(r)
+    for name, res in (("ksvd.depth", comp.depth), ("ksvd.rgb", comp.rgb)):
+        (rec,) = by_name[name]
+        assert rec.counts["ksvd.sweeps"] == res.iters >= 1
+        assert rec.counts["ksvd.reads"] == res.iters
+    blocks = sorted(r.counts["ksvd.atom_blocks"]
+                    for r in by_name["ksvd.sweep"])
+    assert blocks == sorted([4] * comp.depth.iters + [3] * comp.rgb.iters)
+
+
+def test_ksvd_outputs_bit_identical_with_tracing_on_and_off():
+    off = _ksvd_round_trip(6)
+    profiling.tracing(True)
+    try:
+        on = _ksvd_round_trip(6)
+    finally:
+        profiling.tracing(False)
+    assert profiling.take()
+    a, b = list(_leaves(off)), list(_leaves(on))
+    assert len(a) == len(b) > 10
+    for u, v in zip(a, b):
+        assert u.dtype == v.dtype and torch.equal(u, v)

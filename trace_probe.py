@@ -2,8 +2,8 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 trace_probe.py --cells compress.stream,compress.calibrated \
-        --seeds 1234567891,2345678912,3456789123 --seconds 51
+    python3 trace_probe.py --cells compress.stream,compress.calibrated,\
+ksvd.stream --seeds 1234567891,2345678912,3456789123 --seconds 51
 
 For each cell and seed it sets the cell's entry up (`portbench/entries/`)
 with the port's tracing on (`setup_program_s`: the seconds inside the
@@ -17,7 +17,12 @@ through the benchmark's own `trace.profile_requests`, twice with tracing
 off and twice on, in turns, and splits the last traced profile by layer
 (`portbench/harness/layers.py`): per-cloud idle and launches of each
 layer, synchronising calls inside `round_trip`, and the closure of the
-split against the benchmark's own `busy_s`, `window_s` and `kernels`. It
+split against the benchmark's own `busy_s`, `window_s` and `kernels`;
+in the K-SVD codec's cell (`ksvd.stream`), whose spans are none of those
+layers, per-cloud idle and launches by the innermost `ksvd.*` span
+(`ksvd.front_end`, `.omp`, `.sweep`, `.replace`, `.decompress`, and the
+rest of `ksvd.depth`, `ksvd.rgb` and `ksvd.compress`) and the
+synchronising calls inside `ksvd.compress` and `ksvd.decompress`. It
 counts the synchronising calls of one request with tracing off and on
 (torch's sync debug mode), and last times one span off and on on the
 host. Every result is a JSON line (also written to `--out`); the last
@@ -33,6 +38,11 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
+
+# the K-SVD codec's spans (workloads/ksvd_compressor.py, models/dictionary.py)
+KSVD_SPANS = {"ksvd.compress", "ksvd.front_end", "ksvd.depth", "ksvd.rgb",
+              "ksvd.omp", "ksvd.sweep", "ksvd.replace", "ksvd.decompress"}
 
 
 def _profile(entry, indices, device, tracing: bool):
@@ -152,6 +162,7 @@ def _split(entry, row, pieces, device):
             "kernels_per_cloud": prof["kernels"] / prof["requests"],
             "idle_gaps": brk["idle_gaps"]})
     names = {r.name for r in recs}
+    top = {r.name for r in recs if r.parent is None}
     kept = layers.keep(events, names)
     res = layers.attribute(kept, prof["window_s"])
     idle = prof["window_s"] - prof["busy_s"]
@@ -164,14 +175,44 @@ def _split(entry, row, pieces, device):
             1.0 - res["idle_s"].get("round_trip", 0.0) / inside
             if inside else None,
         "span_records": len(recs),
-        # the profiler's clock against the host's: the round_trip ranges
-        # in the trace over the same spans' records
+        # the profiler's clock against the host's: the outermost spans'
+        # ranges in the trace over the same spans' records
         "clock_ratio": sum(e - s for s, e, nm in kept["spans"]
-                           if nm == layers.ROOT) / 1e6
-        / sum(r.end - r.start for r in recs if r.name == layers.ROOT)}
+                           if nm in top) / 1e6
+        / sum(r.end - r.start for r in recs if r.parent is None)}
+    if names & KSVD_SPANS:
+        row["ksvd_split"] = span_split(events, names & KSVD_SPANS,
+                                       prof["window_s"])
     if device.type == "cuda":
         row["syncs_tracing_0"] = _syncs(entry, 1000 + n, False)
         row["syncs_tracing_1"] = _syncs(entry, 1001 + n, True)
+
+
+def span_split(events, names, window_s: float) -> dict:
+    """Per profiled request: device idle (ms) and kernel launches by the
+    innermost of the spans `names` open when each idle gap began or each
+    kernel's launching call was made ("(no span)" outside them), and the
+    synchronising calls inside them."""
+    from portbench.harness import layers
+
+    kept = layers.keep(events, names)
+    res = layers.attribute(kept, window_s)
+    n = res["requests"]
+    if not n:
+        return {}
+    kernels = [d for d in kept["device"] if not d[2].startswith(layers.COPIES)]
+    at = [kept["launch_at"].get(d[3]) for d in kernels]
+    found = [t for t in at if t is not None]
+    launches = Counter(inner or "(no span)" for inner, _ in
+                       layers._labels(found, kept["spans"]))
+    launches["(no span)"] += len(at) - len(found)
+    syncs = sum(inner is not None for inner, _ in
+                layers._labels(kept["syncs"], kept["spans"]))
+    return {"idle_ms": {k: 1e3 * v / n
+                        for k, v in res["idle_by_span"].items()},
+            "launches": {k: v / n for k, v in launches.items()},
+            "unmatched": res["unmatched"], "syncs_per_cloud": syncs / n,
+            "busy_in_ms": 1e3 * res["busy_in_s"] / n}
 
 
 def probe_cell(pieces: dict, seeds, seconds: float, device) -> list:
@@ -220,7 +261,8 @@ def span_cost_us(n: int = 200_000) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--cells", default="compress.stream,compress.calibrated")
+    ap.add_argument("--cells", default="compress.stream,compress.calibrated,"
+                    "ksvd.stream")
     ap.add_argument("--seeds", default="1234567891,2345678912,3456789123")
     ap.add_argument("--seconds", type=float, default=51.0)
     ap.add_argument("--out", default="chiprun_out/trace_probe.jsonl")
@@ -263,6 +305,8 @@ def main(argv=None) -> int:
             c["named_as_span"] = r["layers"]["split"]["named_as_span"]
             c["syncs"] = [r.get("syncs_tracing_0"),
                           r.get("syncs_tracing_1")]
+            if "ksvd_split" in r:
+                c["ksvd_split"] = r["ksvd_split"]
     for c in summary["cells"].values():
         c["cost"] = [1.0 - on / off for on, off in zip(c["on"], c["off"])]
     print(json.dumps(summary), flush=True)
