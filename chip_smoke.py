@@ -69,9 +69,12 @@ Phases, each of which must pass (any failure exits non-zero):
                kernel launch) held to the JAX anchors' range over four
                keys, the stage split of one ksvd call (its stage
                functions timed), one depth sweep under torch.profiler, the artifact
-               written, read back and decompressed on the host, and one
+               written, read back and decompressed on the host, one
                sweep on the card against the CPU in float64 with the same
-               draws;
+               draws, and one compress with every atom block's kernel
+               launch (csrc/ksvd_power.cu, depth and colour blocks) held
+               to the dense plain version in float32 (1e-5 of each
+               output's largest value), timed against it per launch;
  11. icp     — point-to-plane ICP on phase 3's map under phase 7's
                perturbation (held to the JAX anchor), the gp-accuracy
                protocol of cli.py (cmd_gp_accuracy at its defaults) over
@@ -124,17 +127,18 @@ Phases, each of which must pass (any failure exits non-zero):
                the whole cloud), its RMSE, claims, banks and states
                bit-equal to phase 3's.
 
-The last three lines of standard output are the kernels' JSON object, the
-card's `nvidia-smi` name and power limit, and the result object.
+The last three lines of standard output are the kernels' JSON object
+(sogp_train and ksvd_power), the card's `nvidia-smi` name and power
+limit, and the result object.
 
 `shard_probe.py` runs phase 13's ranks one per card under NCCL on a
 machine with two or more cards.
 
-    python3 chip_smoke.py --probe [f64_pairs] [arbitrate]
+    python3 chip_smoke.py --probe [f64_pairs] [arbitrate] [ksvd_block]
 
 runs, instead of the phases, the card-side probes that phase 11 runs only
 in part (both when none is named; JSON lines with the card's name and
-power limit; ~8 minutes):
+power limit; ~8 minutes), or the K-SVD atom block kernel's:
 
   * f64_pairs — the 20 gp-accuracy pairs, each aligned by GP register and
     ICP on a map the kernel trains in float32, as phase 11 does, and on a
@@ -144,7 +148,13 @@ power limit; ~8 minutes):
   * arbitrate — the kernel and the plain version in float32 held to the
     plain version in float64 (sogp_regimes.arbitrate) at the accuracy
     banks of pairs 0-2 (depth and RGB) and at the calibrated depth banks
-    of room_cloud seeds 0-3 at the float32 and float64 MAP's values.
+    of room_cloud seeds 0-3 at the float32 and float64 MAP's values;
+  * ksvd_block — the atom block kernel (cuda_kernels/ksvd_power.py) at
+    the benchmark's shapes: build, ptxas, clusters at once, phase 10's
+    float32 check over one compress (users per atom, gaps, card ms per
+    launch, bytes bound), and per block of its first depth and colour
+    sweep the float64 gap and the kernel timed against the same kernel
+    with no row staged in shared memory; ~1 minute.
 """
 
 from __future__ import annotations
@@ -1559,13 +1569,104 @@ def ksvd_split(S, W, valid, cfg, draws):
     return st, res.iters, float(res.error)
 
 
-def ksvd_phase(pts, cols, valid, ccfg, dev, kind, card):
-    """Phase 10: the K-SVD row of bench.py:779-822 with its guards, the
-    stage split, one profiled depth sweep, the artifact on the card, and
-    one sweep on the card against the CPU in float64."""
+BLOCK_TOL = 1e-5       # float32 kernel vs plain, share of an output's largest
+
+
+def ksvd_block_run(pts, cols, valid, ccfg, dev, seed, keep=0):
+    """One K-SVD compress of the cloud in float32 (as configured) with each
+    atom block's kernel launch (cuda_kernels/ksvd_power.py) held to the
+    dense plain version on the same inputs. Per problem (depth, rgb):
+    each launch's users, its largest gap (u and x_new, finite entries, as
+    a share of the output's largest; None when the non-finite entries
+    differ), card ms of the launch with its max |R| reduction and of the
+    plain version (CUDA events, one call each after a device sleep), and
+    its bytes bound (each user row of R and W, x_j, using and the outputs
+    once, at 3.35 TB/s); the users of every atom; and, with keep > 0, the
+    inputs of its first `keep` blocks. Also the block launches and atom
+    blocks the compress counted."""
+    from gp_compressor_tpu_torch.models import dictionary
+    from gp_compressor_tpu_torch.workloads import ksvd_compressor as kc
+
+    real = dictionary._block_update
+    per = {k: {"users": [], "gap": [], "ms": [], "plain_ms": [],
+               "bound_ms": [], "atom_users": [], "kept": []}
+           for k in ("depth", "rgb")}
+
+    def gap(got, want):
+        out = 0.0
+        for g, w in zip(got, want):
+            fin = torch.isfinite(w)
+            if not torch.equal(torch.isfinite(g), fin):
+                return None
+            if fin.any():
+                scale = max(float(w[fin].abs().max()), 1e-30)
+                out = max(out, float((g[fin] - w[fin]).abs().max()) / scale)
+        return out
+
+    def both(R, W, dj, xj, using, iters):
+        p = per["depth" if R.shape[0] == ccfg.patch.max_patches else "rgb"]
+        got, want = [], []
+        p["ms"].append(event_ms(lambda: got.append(
+            real(R, W, dj, xj, using, iters)), 1))
+        p["plain_ms"].append(event_ms(lambda: want.append(
+            dictionary._block_update_plain(R, W, dj, xj, using, iters)), 1))
+        p["gap"].append(gap(got[0], want[0]))
+        users = using.sum(1).cpu()
+        p["atom_users"].append(users)
+        (b, n), l = xj.shape, R.shape[1]
+        cnt = int(users.sum())
+        nbytes = R.element_size() * (2 * cnt * l + b * n + b * (l + n)) \
+            + b * n
+        p["users"].append(cnt)
+        p["bound_ms"].append(nbytes / 3.35e12 * 1e3)
+        if len(p["kept"]) < keep:
+            p["kept"].append(tuple(t.clone() for t in (R, W, dj, xj, using)))
+        return got[0]
+
+    k0, b0 = counted("ksvd.block_kernels"), counted("ksvd.atom_blocks")
+    dictionary._block_update = both
+    try:
+        comp = kc.compress(pts, cols, valid, ccfg, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+    finally:
+        dictionary._block_update = real
+    per["launches"] = counted("ksvd.block_kernels") - k0
+    per["atom_blocks"] = counted("ksvd.atom_blocks") - b0
+    per["patch_rows"] = int(comp.raster.n_leaves)
+    return per
+
+
+def block_summary(p, patch_rows):
+    """The printable summary of one problem of ksvd_block_run: mean and
+    max of each per-launch list, users per atom in quantiles."""
     import numpy as np
 
-    from gp_compressor_tpu_torch.cuda_kernels import sogp_train
+    u = torch.cat(p["atom_users"]).double().numpy()
+    res = {"launches": len(p["ms"]), "patch_rows": patch_rows,
+           "users_per_atom": {q: float(np.quantile(u, f)) for q, f in (
+               ("min", 0), ("p10", .1), ("p50", .5), ("p90", .9),
+               ("p99", .99), ("max", 1))},
+           "mean_user_share_of_rows": float(u.mean() / patch_rows),
+           "atoms_without_users": int((u == 0).sum()),
+           "gap_max": max((g for g in p["gap"] if g is not None),
+                          default=0.0),
+           "gaps_nonfinite_differ": sum(g is None for g in p["gap"])}
+    for f in ("users", "ms", "plain_ms", "bound_ms"):
+        res[f] = {"mean": sum(p[f]) / len(p[f]), "max": max(p[f])}
+    res["share_of_bound"] = res["bound_ms"]["mean"] / res["ms"]["mean"]
+    return res
+
+
+def ksvd_phase(pts, cols, valid, ccfg, dev, kind, card):
+    """Phase 10: the K-SVD row of bench.py:779-822 with its guards, the
+    stage split, one profiled depth sweep, the artifact on the card, one
+    sweep on the card against the CPU in float64, and one compress with
+    every atom block's kernel launch held to the plain version in float32.
+    Returns the block kernel's entry of the `kernels` line."""
+    import numpy as np
+
+    from gp_compressor_tpu_torch.cuda_kernels import nvcc
     from gp_compressor_tpu_torch.geometry import patches
     from gp_compressor_tpu_torch.io import artifact
     from gp_compressor_tpu_torch.models import dictionary
@@ -1576,9 +1677,14 @@ def ksvd_phase(pts, cols, valid, ccfg, dev, kind, card):
 
     def run(seed):
         r0 = counted("ksvd.reads")
+        k0, b0 = counted("ksvd.block_kernels"), counted("ksvd.atom_blocks")
         comp = kc.compress(pts, cols, valid, ccfg, generator=torch.Generator(
             device=dev).manual_seed(seed))
         torch.cuda.synchronize()
+        # one block kernel launch per block of atoms
+        check(counted("ksvd.block_kernels") - k0
+              == counted("ksvd.atom_blocks") - b0 > 0,
+              "[10] block kernel launches differ from the atom blocks")
         return comp, counted("ksvd.reads") - r0
 
     run(0)                                                 # warm-up
@@ -1664,7 +1770,7 @@ def ksvd_phase(pts, cols, valid, ccfg, dev, kind, card):
         f"{json.dumps(res)}")
 
     # ---- the artifact: write, read back, decompress on the host
-    base = sogp_train.BUILD_DIR.parent / "chip_smoke" / "ksvd"
+    base = nvcc.BUILD_DIR.parent / "chip_smoke" / "ksvd"
     base.parent.mkdir(parents=True, exist_ok=True)
     art, t_art = timed(lambda: kc.to_artifact(comp1))
     t0 = time.perf_counter()
@@ -1696,8 +1802,54 @@ def ksvd_phase(pts, cols, valid, ccfg, dev, kind, card):
                                 "and the CPU")
     for k in ("omp_X", "sweep_D", "sweep_X", "sweep_err"):
         check(par[k] <= 1e-9, f"[10] {k}: card and CPU differ by {par[k]}")
+
+    # ---- the block kernel against the plain version, float32, every
+    # atom block of one bench compress (depth n 2,048 and colour n 6,144)
+    t0 = time.perf_counter()
+    blk = ksvd_block_run(pts, cols, valid, ccfg, dev, seed=3)
+    n_rows = blk["patch_rows"]
+    summ = {k: block_summary(blk[k], n_rows * (3 if k == "rgb" else 1))
+            for k in ("depth", "rgb")}
+    say(f"[10] block kernel vs plain version, float32, every atom block of "
+        f"one compress ({time.perf_counter() - t0:.2f} s on {kind} "
+        f"({card})): {blk['launches']} launches for {blk['atom_blocks']} "
+        f"atom blocks; {json.dumps(summ)}")
+    check(blk["launches"] == blk["atom_blocks"]
+          == sum(s["launches"] for s in summ.values()) > 0,
+          "[10] block kernel launches differ from the atom blocks")
+    for k, s in summ.items():
+        check(s["launches"] > 0, f"[10] no {k} atom block ran")
+        check(s["gaps_nonfinite_differ"] == 0,
+              f"[10] {k}: the kernel's non-finite entries differ from the "
+              f"plain version's in {s['gaps_nonfinite_differ']} blocks")
+        check(s["gap_max"] <= BLOCK_TOL,
+              f"[10] {k}: the kernel differs from the plain version by "
+              f"{s['gap_max']} of an output's largest value")
     say(f"[10] phase wall {time.perf_counter() - t_phase:.2f} s on {kind} "
         f"({card})")
+    launches = blk["launches"]
+    mean = lambda f: sum(sum(blk[k][f]) for k in ("depth", "rgb")) / launches
+    return {
+        "name": "ksvd_power",
+        "route": "cuda",
+        "source": "gp_compressor_tpu_torch/csrc/ksvd_power.cu",
+        # no TPU kernel: the JAX package runs the atom sweep as XLA ops
+        "replaces": "gp_compressor_tpu/models/dictionary.py::_atom_sweep",
+        "launches": launches,
+        "max_rel_err": max(s["gap_max"] for s in summ.values()),
+        # per launch, means over the compress's depth and colour blocks
+        "ms": mean("ms"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": "bytes",
+        # no library call runs a masked power iteration over a row subset;
+        # plain_ms is the dense stack through PyTorch's batched GEMVs
+        "library_ms": None,
+        "depth": {f: summ["depth"][f] for f in (
+            "launches", "ms", "plain_ms", "bound_ms", "share_of_bound")},
+        "rgb": {f: summ["rgb"][f] for f in (
+            "launches", "ms", "plain_ms", "bound_ms", "share_of_bound")},
+    }
 
 
 def icp_accuracy_phase(pts, valid, ccfg, comp_ref, dev, kind, card):
@@ -3101,7 +3253,7 @@ def main() -> int:
     bayes_phase(pts, cols, valid, ccfg, comp, smc_ctx, dev, kind, card)
 
     # ---- 10. the K-SVD codec
-    ksvd_phase(pts, cols, valid, ccfg, dev, kind, card)
+    ksvd_kernel = ksvd_phase(pts, cols, valid, ccfg, dev, kind, card)
 
     # ---- 11. ICP, the accuracy pairs, and the MAP calibration's dtype
     icp_accuracy_phase(pts, valid, ccfg, comp, dev, kind, card)
@@ -3142,7 +3294,7 @@ def main() -> int:
         "sharded_plain_ms": shard["plain_ms"],
         "sharded_bound_ms": shard["bound_ms"],
         "sharded_bound_by": shard["bound_by"],
-    }]
+    }, ksvd_kernel]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3240,8 +3392,98 @@ def probe_arbitrate(dev, card):
                  b.X, b.y, b.mask, s20=s20, eps=eps)
 
 
+def reform_only(R, W, dj, xj, using, iters):
+    """ksvd_power.block_power with no user row staged in shared memory:
+    every pass re-forms each user row from R and W (the path the kernel
+    takes past a CTA's rows_cap), for timing the staging against it."""
+    from gp_compressor_tpu_torch.cuda_kernels import ksvd_power
+
+    (n, l), b, size = R.shape, dj.shape[0], R.element_size()
+    geo = ksvd_power.power_geometry(n, l, size)
+    u = torch.empty((b, l), dtype=R.dtype, device=R.device)
+    x = torch.empty((b, n), dtype=R.dtype, device=R.device)
+    rmax = torch.linalg.vector_norm(R, math.inf)
+    err = ksvd_power.build().ksvd_power_launch(
+        R.data_ptr(), W.data_ptr(), dj.data_ptr(), dj.stride(0),
+        dj.stride(1), xj.data_ptr(), using.data_ptr(), rmax.data_ptr(),
+        u.data_ptr(), x.data_ptr(), b, n, l, iters, geo.idx_cap, 0,
+        geo.smem_bytes - geo.rows_cap * l * size, size,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return u, x
+
+
+def probe_ksvd_block(dev, card):
+    """The K-SVD atom block kernel at the benchmark's shapes: its build and
+    ptxas report, how many atoms' clusters the card runs at once, phase
+    10's float32 check over every atom block of one compress of the bench
+    cloud (seed 0; users per atom, gaps, card ms per launch, bytes bound),
+    and on each block of the first depth and colour sweep: the gap in
+    float64, and card ms per launch as the mean of 50 launches of the
+    kernel, of the kernel with no row staged (reform_only), of its max
+    |R| reduction alone, and of 5 of the plain version."""
+    from gp_compressor_tpu_torch.cuda_kernels import ksvd_power
+    from gp_compressor_tpu_torch.models import dictionary
+    from gp_compressor_tpu_torch.utils import synthetic
+
+    ksvd_power.build()
+    info = ksvd_power.BUILD_INFO
+    probe_say("ksvd_build", card, {
+        "seconds": info["seconds"],
+        "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
+                  if "registers" in ln or "spill" in ln],
+        "max_active_clusters": {
+            f"n={n} {dt}": ksvd_power.max_active_clusters(n, 400, dt)
+            for n in (2048, 6144) for dt in (torch.float32, torch.float64)},
+        "geometry": {f"n={n} itemsize={sz}": ksvd_power.power_geometry(
+            n, 400, sz)._asdict() for n in (2048, 6144) for sz in (4, 8)}})
+
+    ccfg = bench_config()
+    pts, cols = (torch.from_numpy(a).to(dev)
+                 for a in synthetic.room_cloud(n=N_POINTS, seed=0))
+    valid = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+    first = {"depth": -(-ccfg.ksvd.dict_size // ccfg.ksvd.atom_block),
+             "rgb": -(-ccfg.rgb_ksvd.dict_size // ccfg.rgb_ksvd.atom_block)}
+    blk = ksvd_block_run(pts, cols, valid, ccfg, dev, seed=0,
+                         keep=max(first.values()))
+    for key, nb in first.items():
+        res = block_summary(blk[key], blk["patch_rows"]
+                            * (3 if key == "rgb" else 1))
+        res["sweeps"] = res["launches"] // nb
+        per = []
+        for R, W, dj, xj, using in blk[key]["kept"][:nb]:
+            a64 = [t.double() if t.is_floating_point() else t
+                   for t in (R, W, dj, xj, using)]
+            got = ksvd_power.block_power(*a64, 20)
+            want = dictionary._block_update_plain(*a64, 20)
+            staged = ksvd_power.block_power(R, W, dj, xj, using, 20)
+            reform = reform_only(R, W, dj, xj, using, 20)
+            per.append({
+                "gap_f64": max(float((g - w).abs().max()
+                                     / w.abs().max().clamp(min=1e-30))
+                               for g, w in zip(got, want)),
+                "reform_vs_staged": max(float((g - w).abs().max()
+                                              / w.abs().max().clamp(
+                                                  min=1e-30))
+                                        for g, w in zip(reform, staged)),
+                "kernel_ms": event_ms(lambda: ksvd_power.block_power(
+                    R, W, dj, xj, using, 20), 50),
+                "reform_ms": event_ms(lambda: reform_only(
+                    R, W, dj, xj, using, 20), 50),
+                "rmax_ms": event_ms(lambda: torch.linalg.vector_norm(
+                    R, math.inf), 50),
+                "plain_ms": event_ms(lambda: dictionary._block_update_plain(
+                    R, W, dj, xj, using, 20), 5)})
+        res["first_sweep"] = {f: {"mean": sum(p[f] for p in per) / len(per),
+                                  "max": max(p[f] for p in per)}
+                              for f in per[0]}
+        res["first_sweep"]["blocks"] = len(per)
+        probe_say(f"ksvd_block_{key}", card, res)
+
+
 def probe(sections) -> int:
-    """`--probe`: the card-side probes phase 11 runs only in part."""
+    """`--probe`: the card-side probes phase 11 runs only in part, and
+    (`ksvd_block`, only when named) the K-SVD atom block kernel."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3254,6 +3496,8 @@ def probe(sections) -> int:
         probe_arbitrate(dev, card)
     if "f64_pairs" in sections:
         probe_f64_pairs(dev, card)
+    if "ksvd_block" in sections:
+        probe_ksvd_block(dev, card)
     return 0
 
 

@@ -20,7 +20,8 @@ shape (patches per block, rows per lane, shared bytes) from S and D.
 
 The library is built at first use with nvcc into `build/torch_kernels/`
 under the repository root, named by a hash of the source so that a
-changed source rebuilds, and loaded through its plain C interface.
+changed source rebuilds, and loaded through its plain C interface
+(`nvcc.load_library`).
 
 `add_points_batch_plain` is the plain PyTorch version of the same
 function (it delegates to `models.sparse_gp.add_points_batch`); the
@@ -30,16 +31,13 @@ wrapper takes it only for tensors that lie on the CPU.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from gp_compressor_tpu_torch.config import GPConfig
+from gp_compressor_tpu_torch.cuda_kernels.nvcc import load_library
 from gp_compressor_tpu_torch.models import sparse_gp
 from gp_compressor_tpu_torch.models.sparse_gp import SOGPState
 from gp_compressor_tpu_torch.ops.kernels import RBFParams
@@ -47,11 +45,8 @@ from gp_compressor_tpu_torch.ops.noise import GaussianNoise
 from gp_compressor_tpu_torch.utils.profiling import count, span
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "sogp_train.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 MAX_SLOTS = 128
 SMEM_DEFAULT = 48 * 1024        # a block's shared memory without the opt-in
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # set by build(): library path, build seconds (0.0 when reused) and the
 # ptxas register / shared-memory / spill report
@@ -71,29 +66,7 @@ def build() -> ctypes.CDLL:
 
 
 def _build_and_load() -> ctypes.CDLL:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"sogp_train_{digest}.so"
-    log_path = lib_path.with_suffix(".log")
-    seconds = 0.0
-    if not lib_path.exists():
-        if CUDA_HOME is None:
-            raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-               "-o", str(tmp), str(SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib, info = load_library(SOURCE, "sogp_train")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sogp_train_launch.argtypes = [p] * 14 + [i] * 6 + [f, f, i, i, i, i,
                                                          p]
@@ -102,8 +75,7 @@ def _build_and_load() -> ctypes.CDLL:
     lib.sogp_div_test.restype = i
     lib.sogp_train_error_string.argtypes = [i]
     lib.sogp_train_error_string.restype = ctypes.c_char_p
-    BUILD_INFO.update(path=str(lib_path), seconds=seconds,
-                      ptxas=log_path.read_text() if log_path.exists() else "")
+    BUILD_INFO.update(info)
     return lib
 
 

@@ -16,9 +16,11 @@ The port of `gp_compressor_tpu.models.dictionary`. Reference semantics
 Every per-patch loop is a batched tensor op over all n patches; the greedy
 word order and the atom sweep stay loops. The atom sweep updates
 `atom_block` atoms at a time against the block-start residual (1 is the
-reference's Gauss-Seidel order): their power iterations run as batched
-matrix-vector products over a [blk, n, l] stack, and a short last block
-holds only the real atoms.
+reference's Gauss-Seidel order), and a short last block holds only the
+real atoms. On the card a block's power iterations are one kernel launch
+over each atom's users (cuda_kernels/ksvd_power.py, counted as
+`ksvd.block_kernels`); on the CPU they run as batched matrix-vector
+products over the dense [blk, n, l] stack.
 
 The OMP solve keeps JAX's semantics for a singular Gram (an atom chosen
 twice once the residual is orthogonal to every unused atom): the solve
@@ -43,6 +45,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gp_compressor_tpu_torch.config import KSVDConfig
+from gp_compressor_tpu_torch.cuda_kernels import ksvd_power
 from gp_compressor_tpu_torch.utils.profiling import count, span
 
 
@@ -221,6 +224,30 @@ def _power_iteration(A: torch.Tensor, iters: int):
     return u, v, sigma
 
 
+def _block_update_plain(R, W, dj, xj, using, iters: int):
+    """The new atoms and coefficients of a block of b atoms (R, W [n, l],
+    dj [b, l], xj and using [b, n]): the largest singular pair of the
+    masked residual with atom j's part restored, restricted to its users,
+    A_j = using_j o (R + W o (x_j d_j^T)), over the dense [b, n, l] stack.
+    Returns (u [b, l], sigma v o using [b, n]); an atom without users
+    keeps d_j and x_j."""
+    A = (R + (xj[:, :, None] * dj[:, None, :]) * W) * using[:, :, None]
+    u, v, sigma = _power_iteration(A.transpose(1, 2), iters)
+    xj_new = sigma[:, None] * v * using
+    any_user = torch.any(using, dim=1)[:, None]
+    return (torch.where(any_user, u, dj),
+            torch.where(any_user, xj_new, xj))
+
+
+def _block_update(R, W, dj, xj, using, iters: int):
+    """_block_update_plain's (u, x_new): CUDA tensors take the kernel
+    (cuda_kernels/ksvd_power.py), over each atom's users only; CPU tensors
+    the plain version."""
+    if R.device.type == "cuda":
+        return ksvd_power.block_power(R, W, dj, xj, using, iters)
+    return _block_update_plain(R, W, dj, xj, using, iters)
+
+
 def _replace_unused(D: torch.Tensor, usage_count: torch.Tensor,
                     S: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Unused atoms <- the normalized data rows S[idx] (idx [K]: one draw
@@ -251,26 +278,20 @@ def _atom_sweep(D, code: OMPCode, S, W, valid, cfg: KSVDConfig):
     I = code.I[None]
     count("ksvd.atom_blocks", -(-K // blk))
     for j0 in range(0, K, blk):
-        jb = torch.arange(j0, min(j0 + blk, K), device=dev)   # [b]
+        j1 = min(j0 + blk, K)
+        jb = torch.arange(j0, j1, device=dev)                  # [b]
         hit = (I == jb[:, None, None]) & usek[None]            # [b, n, kmax]
         using = torch.any(hit, dim=2)                          # [b, n]
         kpos = torch.argmax(hit.to(torch.int32), dim=2)        # first True
-        xj = torch.gather(Xeff.expand(jb.shape[0], n, kmax), 2,
+        xj = torch.gather(Xeff.expand(j1 - j0, n, kmax), 2,
                           kpos[..., None])[..., 0] * using     # [b, n]
-        dj = D[:, jb].T                                        # [b, l]
-        # the masked residual with atom j's part restored, restricted to
-        # its users: A = sel o (R + W o (x_j d_j^T))
-        A = (R + (xj[:, :, None] * dj[:, None, :]) * W) * using[:, :, None]
-        u, v, sigma = _power_iteration(A.transpose(1, 2), cfg.power_iters)
-        xj_new = sigma[:, None] * v * using
-        any_user = torch.any(using, dim=1)[:, None]
-        u = torch.where(any_user, u, dj)
-        xj_new = torch.where(any_user, xj_new, xj)
+        dj = D[:, j0:j1].T                                     # [b, l] view
+        u, xj_new = _block_update(R, W, dj, xj, using, cfg.power_iters)
         usf = using.to(S.dtype)
         old = (xj * usf).T @ dj                                # [n, l]
         new = (xj_new * usf).T @ u
         R = R + (old - new) * W
-        D[:, jb] = u.T
+        D[:, j0:j1] = u.T
         upd = (ar[None, None, :] == kpos[:, :, None]) & using[:, :, None]
         Xeff = torch.where(torch.any(upd, dim=0),
                            torch.sum(torch.where(upd, xj_new[:, :, None], 0.0),

@@ -64,3 +64,30 @@ def sweep_parity(S, W, valid, cfg: KSVDConfig, device, seed: int = 0) -> dict:
                                   and torch.equal(c[2], d[2])
                                   and torch.equal(c[5], d[5])
                                   and torch.equal(c[6], d[6]))}
+
+
+def block_problem(n: int, l: int, b: int, n_valid: int, seed: int = 0,
+                  share: float = 0.05):
+    """One atom block's inputs as `_atom_sweep` forms them, float64:
+    (R [n, l], W [n, l], D [l, b + 4], xj [b, n], using [b, n] bool); the
+    block's atoms are D's columns 2 .. b + 1 (`D[:, 2:b + 2].T`, a
+    strided view). Rows from n_valid on are padding (R and W zero, no
+    atom's user). Atom 0 has no user, atom 1 one user, atom 2 every valid
+    row, atom 3 half of them; the others `share` of the valid rows. x_j
+    is the atom's coefficient on its users, 0 elsewhere; R is a small
+    residual under the mask, so each A_j has a dominant pair."""
+    r = np.random.default_rng(seed)
+    D = r.standard_normal((l, b + 4))
+    D /= np.linalg.norm(D, axis=0)
+    W = (r.uniform(size=(n, l)) > 0.2).astype(np.float64)
+    W[n_valid:] = 0.0
+    R = 0.05 * r.standard_normal((n, l)) * W
+    using = r.uniform(size=(b, n)) < share
+    using[0] = False
+    using[1] = False
+    using[1, r.integers(n_valid)] = True
+    using[2] = True
+    using[3] = r.uniform(size=n) < 0.5
+    using[:, n_valid:] = False
+    xj = r.standard_normal((b, n)) * using
+    return R, W, D, xj, using

@@ -164,6 +164,29 @@ def test_atom_sweep_matches_jax(block):
     _same_code(tc2, jc2)
 
 
+@pytest.mark.parametrize("block", [8, 40])
+def test_atom_sweep_on_cpu_takes_the_plain_path(block):
+    """CPU tensors take the plain block update (no `ksvd.block_kernels`
+    launch counted, `ksvd.atom_blocks` as many as the blocks) and match
+    JAX's sweep: blocks of 8, and one block of all 40 atoms."""
+    D, S, W, valid = _problem(l=24, K=40, n=80, seed=11)
+    cfg = dict(dict_size=40, words_max=4, proj_error=1e-3, atom_block=block)
+    jcode = jd.omp_encode(*_jnp(D, S, W, valid), JKSVDConfig(**cfg))
+    jD, jc2, jR = jax.jit(jd._atom_sweep, static_argnums=5)(
+        *_jnp(D), jcode, *_jnp(S, W, valid), JKSVDConfig(**cfg))
+    before = profiling.counters()
+    tD, tc2, tR = td._atom_sweep(T(D), td.OMPCode(*_t(*jcode)),
+                                 *_t(S, W, valid), KSVDConfig(**cfg))
+    after = profiling.counters()
+    assert after.get("ksvd.block_kernels", 0) \
+        == before.get("ksvd.block_kernels", 0)
+    assert after["ksvd.atom_blocks"] - before.get("ksvd.atom_blocks", 0) \
+        == 40 // block
+    np.testing.assert_allclose(tD.numpy(), np.asarray(jD), atol=ATOL)
+    np.testing.assert_allclose(tR.numpy(), np.asarray(jR), atol=ATOL)
+    _same_code(tc2, jc2)
+
+
 def jax_draws(key, valid, cfg, dtype=jnp.float64):
     """The rows jax ksvd_device's _replace_unused calls draw from `key`,
     as the port's KSVDDraws: key -> (key, k0) for the initial dictionary,

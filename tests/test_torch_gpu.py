@@ -15,7 +15,10 @@ graph against the eager ascent (eager, then capture, then replay, at the
 benchmark's shapes; two banks and starts through one graph; gated and
 failed factorizations); the K-SVD codec (OMP and one
 outer sweep on the card against the CPU in float64 with the same draws,
-one stop-test read per sweep) and ICP on the card against the CPU; the
+one stop-test read per sweep; the atom block kernel against the dense
+plain version at the depth and colour shapes, with atoms of no, one and
+every user, padding and non-finite rows, a singular Gram, and every
+block of a small compress) and ICP on the card against the CPU; the
 native IO library's build on the card's machine, and the command line
 on its default device (the card).
 
@@ -506,10 +509,182 @@ def test_ksvd_sweep_on_card_matches_cpu(dev, block):
 
     cfg = KSVDConfig(dict_size=40, words_max=3, proj_error=1e-8,
                      atom_block=block)
+    k0, b0 = _count("ksvd.block_kernels"), _count("ksvd.atom_blocks")
     res = ksvd_case.sweep_parity(*ksvd_case.problem(), cfg, dev)
     assert res["indices_equal"], res
     for k in ("omp_X", "sweep_D", "sweep_X", "sweep_err"):
         assert res[k] <= 1e-9, res
+    # one launch per block on the card, none on the CPU
+    blocks = -(-40 // block)
+    assert _count("ksvd.block_kernels") - k0 == blocks
+    assert _count("ksvd.atom_blocks") - b0 == 2 * blocks
+
+
+def _count(name):
+    return profiling.counters().get(name, 0)
+
+
+# float32: each of the kernel's 21 exchanges and the plain version's 41
+# GEMVs sums up to n = 6,144 products in another order (the plain version
+# also divides by |v| before its sum, the kernel after), ~sqrt(n) eps =
+# 5e-6 relative at worst; the power iteration damps such errors at these
+# gaps rather than compounding them. Measured on the card: at most 3.5e-7
+# of each output's largest value, here and over every block of a bench
+# cloud's compress. 1e-5 is above both. float64: 1e-9, as the CPU parity
+# tests (measured: 7e-16).
+BLOCK_TOL = {torch.float32: 1e-5, torch.float64: 1e-9}
+
+
+def _same_block(got, want, dtype):
+    """The kernel's (u, x_new) against the plain version's: the same
+    non-finite entries, the finite ones within BLOCK_TOL of each output's
+    largest finite value. Returns the largest relative gap."""
+    gaps = []
+    for g, w in zip(got, want):
+        fin = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(g), fin)
+        scale = max(float(w[fin].abs().max()), 1e-30) if fin.any() else 1.0
+        gap = float((g[fin] - w[fin]).abs().max()) / scale \
+            if fin.any() else 0.0
+        assert gap <= BLOCK_TOL[dtype], (gap, dtype)
+        gaps.append(gap)
+    return max(gaps)
+
+
+BLOCKS = {"depth": dict(n=2048, l=400, b=16, n_valid=1800),
+          "colour": dict(n=6144, l=400, b=8, n_valid=5400, share=0.03),
+          "nan_row": dict(n=2048, l=400, b=16, n_valid=1800)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(BLOCKS))
+def test_block_kernel_matches_dense(dev, case, dtype):
+    """The block kernel against the dense plain version on one block of
+    the depth shapes (n 2,048, l 400, 16 atoms) and of the colour shapes
+    (n 6,144, a short last block of 8): an atom with no user, one with one
+    user, one whose users are every valid row (more than a CTA's shared
+    memory stages: the rest re-formed from R and W), padding rows; and
+    (nan_row) a NaN in a padding row of R, which the dense stack spreads
+    to every atom with users through 0 x NaN."""
+    from gp_compressor_tpu_torch.cuda_kernels import ksvd_power
+    from gp_compressor_tpu_torch.models import dictionary
+    from gp_compressor_tpu_torch.testing import ksvd_case
+
+    R, W, D, xj, using = (torch.from_numpy(a).to(dev) for a in
+                          ksvd_case.block_problem(**BLOCKS[case]))
+    R, W, D, xj = (t.to(dtype) for t in (R, W, D, xj))
+    if case == "nan_row":
+        R[-1, 5] = float("nan")
+    b, n, l = xj.shape[0], R.shape[0], R.shape[1]
+    geo = ksvd_power.power_geometry(n, l, R.element_size())
+    assert int(using[2].sum()) > ksvd_power.CLUSTER * geo.rows_cap
+    dj = D[:, 2:b + 2].T
+    k0 = _count("ksvd.block_kernels")
+    got = dictionary._block_update(R, W, dj, xj, using, 20)
+    assert _count("ksvd.block_kernels") - k0 == 1
+    want = dictionary._block_update_plain(R, W, dj, xj, using, 20)
+    torch.cuda.synchronize()
+    _same_block(got, want, dtype)
+    u, x = got
+    assert torch.equal(u[0], dj[0]) and torch.equal(x[0], xj[0])
+    if case == "nan_row":
+        assert torch.isnan(u[1:]).all() and torch.isnan(x[1:]).all()
+    else:
+        assert torch.isfinite(u).all() and torch.isfinite(x).all()
+        assert torch.equal(x[1:] != 0, using[1:])
+
+
+def test_block_kernel_singular_gram_matches_dense(dev, monkeypatch):
+    """test_omp_singular_gram_matches_jax's case on the card in float64:
+    OMP leaves non-finite coefficients, and every block of the atom sweep
+    (blocks of 4 over 6 atoms) gives the kernel's u and x_new the dense
+    code's non-finite entries and, elsewhere, its values."""
+    import numpy as np
+
+    from gp_compressor_tpu_torch.config import KSVDConfig
+    from gp_compressor_tpu_torch.models import dictionary
+
+    l, K, n = 12, 6, 5
+    r = np.random.default_rng(2)
+    S = r.standard_normal((n, l))
+    S[3, K:] = 0.0
+    W = np.ones((n, l))
+    W[1, 2] = 0.0
+    D, S, W = (torch.from_numpy(a).to(dev)
+               for a in (np.eye(l)[:, :K], S, W))
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    cfg = KSVDConfig(dict_size=K, words_max=K + 2, proj_error=1e-12,
+                     atom_block=4)
+    code = dictionary.omp_encode(D, S, W, valid, cfg)
+    assert not torch.isfinite(code.X).all()
+    seen = []
+    real = dictionary._block_update
+
+    def both(*a):
+        got = real(*a)
+        seen.append((got, dictionary._block_update_plain(*a)))
+        return got
+
+    monkeypatch.setattr(dictionary, "_block_update", both)
+    k0 = _count("ksvd.block_kernels")
+    dictionary._atom_sweep(D, code, S, W, valid, cfg)
+    torch.cuda.synchronize()
+    assert len(seen) == 2 and _count("ksvd.block_kernels") - k0 == 2
+    assert any(not torch.isfinite(g[0]).all() for g, _ in seen)
+    for got, want in seen:
+        _same_block(got, want, torch.float64)
+
+
+def test_block_kernel_matches_dense_in_a_compress(dev, monkeypatch):
+    """Every block of a small K-SVD compress on the card (float32, the
+    real users of real sweeps) against the dense plain version on the
+    same inputs."""
+    from gp_compressor_tpu_torch.models import dictionary
+    from gp_compressor_tpu_torch.workloads import ksvd_compressor
+
+    gaps = []
+    real = dictionary._block_update
+
+    def both(*a):
+        got = real(*a)
+        gaps.append(_same_block(got, dictionary._block_update_plain(*a),
+                                torch.float32))
+        return got
+
+    monkeypatch.setattr(dictionary, "_block_update", both)
+    pts, cols, valid, cfg = _ksvd_cloud(dev)
+    k0, b0 = _count("ksvd.block_kernels"), _count("ksvd.atom_blocks")
+    ksvd_compressor.compress(pts, cols, valid, cfg)
+    assert len(gaps) == _count("ksvd.block_kernels") - k0 \
+        == _count("ksvd.atom_blocks") - b0 > 0
+
+
+def test_block_kernel_runs_a_block_of_16_atoms_at_once(dev):
+    """At the depth and colour shapes the card holds at least 16 clusters
+    of the kernel at once (two CTAs an SM, ksvd_power.SMEM_MAX), so a
+    block of atom_block 16 runs in one wave."""
+    from gp_compressor_tpu_torch.cuda_kernels import ksvd_power
+
+    for n in (2048, 6144):
+        for dt in (torch.float32, torch.float64):
+            assert ksvd_power.max_active_clusters(n, 400, dt) >= 16
+
+
+def test_block_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from gp_compressor_tpu_torch.cuda_kernels import ksvd_power
+
+    R = torch.zeros((64, 8), device=dev)
+    dj, xj = torch.zeros((4, 8), device=dev), torch.zeros((4, 64), device=dev)
+    using = torch.zeros((4, 64), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ksvd_power.block_power(R, R.cpu(), dj, xj, using, 20)
+    with pytest.raises(TypeError, match="dtype"):
+        ksvd_power.block_power(R, R.double(), dj, xj, using, 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        ksvd_power.block_power(R, R, dj, xj.T.contiguous().T, using, 20)
+    u, x = ksvd_power.block_power(R, R, dj, xj, using, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(u, dj) and torch.equal(x, xj)
 
 
 def _ksvd_cloud(dev):

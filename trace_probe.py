@@ -9,9 +9,10 @@ For each cell and seed it sets the cell's entry up (`portbench/entries/`)
 with the port's tracing on (`setup_program_s`: the seconds inside the
 set-up's outermost spans) and measures two closed-loop windows of
 `--seconds` (the benchmark's `runner.measure`), tracing off and on, the
-order alternating by seed: `points_per_s` of each, and the
-`calibration.*` counts made in each (eager ascents, graph captures and
-replays). Then it sets the
+order alternating by seed: `points_per_s` of each, and the port's
+counts made in each (`calibration.*`: eager ascents, graph captures and
+replays; `ksvd.*`: sweeps, atom blocks, block kernel launches, stop
+reads). Then it sets the
 first seed's entry up again and profiles the cell's profiled requests
 through the benchmark's own `trace.profile_requests`, twice with tracing
 off and twice on, in turns, and splits the last traced profile by layer
@@ -40,6 +41,10 @@ import sys
 import time
 from collections import Counter
 
+# the port's counts a window records: the MAP ascent's eager ascents, graph
+# captures and replays; the K-SVD codec's sweeps, atom blocks, block kernel
+# launches and stop reads
+WINDOW_COUNTS = ("calibration.", "ksvd.")
 # the K-SVD codec's spans (workloads/ksvd_compressor.py, models/dictionary.py)
 KSVD_SPANS = {"ksvd.compress", "ksvd.front_end", "ksvd.depth", "ksvd.rgb",
               "ksvd.omp", "ksvd.sweep", "ksvd.replace", "ksvd.decompress"}
@@ -141,9 +146,9 @@ def _windows(entry, row, seconds, device, first_on: bool):
         row[f"points_per_s_tracing_{int(mode)}"] = win.units / win.seconds
         row[f"requests_tracing_{int(mode)}"] = win.requests
         row[f"records_tracing_{int(mode)}"] = len(profiling.take())
-        row[f"calibration_counts_tracing_{int(mode)}"] = {
+        row[f"window_counts_tracing_{int(mode)}"] = {
             k: v - before.get(k, 0) for k, v in profiling.counters().items()
-            if k.startswith("calibration.")}
+            if k.startswith(WINDOW_COUNTS)}
 
 
 def _split(entry, row, pieces, device):
