@@ -35,10 +35,16 @@ JAX's keys make.
 
 Each sweep's stages are spans: `ksvd.omp` (also the final encoding),
 `ksvd.sweep` and `ksvd.replace`.
+
+A word step of OMP never reads the device, so on the card an encoding is
+replayed as one CUDA graph from the second call of its shapes on (see
+`omp_encode`); it counts `ksvd.omp_eager`, `ksvd.omp_graph_captures` and
+`ksvd.omp_graph_replays`.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import NamedTuple, Optional
 
@@ -80,16 +86,34 @@ def draw_ksvd(valid: torch.Tensor, cfg: KSVDConfig,
     return KSVDDraws(init=idx[:K], sweeps=idx[K:].reshape(cfg.max_iters, K))
 
 
-def omp_encode(D: torch.Tensor, S: torch.Tensor, W: torch.Tensor,
-               valid: torch.Tensor, cfg: KSVDConfig) -> OMPCode:
-    """Batched masked OMP. D: [l, K], S: [n, l], W: [n, l] float mask,
-    valid: [n] bool (padding patches are no-ops)."""
+def _gram_solve(G: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """x [n, m] of the batched systems G [n, m, m] x = c [n, m] by LU with
+    partial pivoting; a singular G gives non-finite values, not an error.
+    On the card the solve takes cuBLAS's batched LU and solve (the
+    cuSOLVER preference) whatever m: torch's default takes MAGMA's LU
+    beyond m = 16 (the colour encodings' 20 words), which synchronises
+    the device and so cannot be captured in a CUDA graph."""
+    if not G.is_cuda:
+        return torch.linalg.solve_ex(G, c[..., None],
+                                     check_errors=False)[0][..., 0]
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.solve_ex(G, c[..., None],
+                                     check_errors=False)[0][..., 0]
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def _omp_encode_eager(D: torch.Tensor, S: torch.Tensor, W: torch.Tensor,
+                      valid: torch.Tensor, cfg: KSVDConfig) -> OMPCode:
+    """omp_encode's body, kmax word steps of torch ops on fixed shapes;
+    nothing in it reads the device, so a CUDA graph can capture it."""
     n, l = S.shape
     K = D.shape[1]
     kmax = cfg.words_max
     dt, dev = S.dtype, S.device
     DT = D.T
-    rows = torch.arange(n, device=dev)
     ar = torch.arange(kmax, device=dev)
     eye = torch.eye(kmax, dtype=dt, device=dev)
 
@@ -108,8 +132,7 @@ def omp_encode(D: torch.Tensor, S: torch.Tensor, W: torch.Tensor,
         w = torch.where(used | ~torch.isfinite(w), 0.0, w)
         ind = torch.argmax(torch.abs(w), dim=1)                       # [n]
 
-        used_n = used.clone()
-        used_n[rows, ind] = True
+        used_n = used.scatter(1, ind[:, None], True)
         I_n = I.clone()
         I_n[:, k] = ind.to(torch.int32)
 
@@ -135,8 +158,7 @@ def omp_encode(D: torch.Tensor, S: torch.Tensor, W: torch.Tensor,
         sel = ar <= k
         Gk = torch.where(sel[None, :, None] & sel[None, None, :], G_n, eye)
         ck = torch.where(sel[None, :], c_n, 0.0)
-        X_n = torch.linalg.solve_ex(Gk, ck[..., None],
-                                    check_errors=False)[0][..., 0]
+        X_n = _gram_solve(Gk, ck)
 
         # the masked residual at the re-solved coefficients
         recon = (X_n[:, None, :] @ Dsel)[:, 0, :]
@@ -151,6 +173,68 @@ def omp_encode(D: torch.Tensor, S: torch.Tensor, W: torch.Tensor,
         c = torch.where(a1, c_n, c)
         nw = nw + active.to(torch.int32)
     return OMPCode(X=X, I=I, nw=nw)
+
+
+# Encodings on the card replay a CUDA graph: the first call of a key runs
+# eager (and warms cuBLAS up), the second captures the unrolled word steps
+# and replays them, later calls replay. The cache is the process's, since
+# every K-SVD sweep encodes a new dictionary of the same shapes. It holds
+# GRAPH_KEYS keys, the least recently used dropped first; a key seen once
+# maps to None.
+GRAPH_KEYS = 4
+_graphs = collections.OrderedDict()
+
+
+def omp_key(D: torch.Tensor, S: torch.Tensor, W: torch.Tensor,
+            valid: torch.Tensor, cfg: KSVDConfig) -> tuple:
+    """What an encoding's graph depends on: the shapes, strides and dtypes
+    of D, S, W and valid, the device, and the words, stop threshold and
+    Gram diagonal of cfg."""
+    arrays = (D, S, W, valid)
+    return (tuple(tuple(t.shape) for t in arrays),
+            tuple(t.stride() for t in arrays),
+            tuple(t.dtype for t in arrays), S.device, int(cfg.words_max),
+            float(cfg.proj_error), bool(cfg.exact_gram_diag))
+
+
+class _OMPGraph:
+    """One encoding captured as a CUDA graph over static copies of D, S,
+    W and valid, in its own memory pool."""
+
+    def __init__(self, D, S, W, valid, cfg: KSVDConfig):
+        self.inputs = tuple(torch.empty_like(t) for t in (D, S, W, valid))
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = _omp_encode_eager(*self.inputs, cfg)
+        count("ksvd.omp_graph_captures")
+
+    def __call__(self, D, S, W, valid) -> OMPCode:
+        for dst, src in zip(self.inputs, (D, S, W, valid)):
+            dst.copy_(src)
+        self.graph.replay()
+        count("ksvd.omp_graph_replays")
+        # the next replay overwrites the graph's outputs
+        return OMPCode(*(t.clone() for t in self.out))
+
+
+def omp_encode(D: torch.Tensor, S: torch.Tensor, W: torch.Tensor,
+               valid: torch.Tensor, cfg: KSVDConfig) -> OMPCode:
+    """Batched masked OMP. D: [l, K], S: [n, l], W: [n, l] float mask,
+    valid: [n] bool (padding patches are no-ops). CUDA tensors outside a
+    capture take the graph of their key (see _graphs); CPU tensors, and
+    the first call of a key, run eager."""
+    if S.is_cuda and not torch.cuda.is_current_stream_capturing():
+        key = omp_key(D, S, W, valid, cfg)
+        if key in _graphs:
+            _graphs.move_to_end(key)
+            if _graphs[key] is None:
+                _graphs[key] = _OMPGraph(D, S, W, valid, cfg)
+            return _graphs[key](D, S, W, valid)
+        _graphs[key] = None
+        if len(_graphs) > GRAPH_KEYS:
+            _graphs.popitem(last=False)
+    count("ksvd.omp_eager")
+    return _omp_encode_eager(D, S, W, valid, cfg)
 
 
 def mp_encode(D: torch.Tensor, S: torch.Tensor, W: torch.Tensor,

@@ -12,7 +12,9 @@ come from JAX's keys along ksvd_device's own split tree and are fed to the
 port as KSVDDraws. Tolerance 1e-9 in float64 (rounding through tens of
 batched matrix products and 20 power iterations); atom indices, word
 counts and sweep counts equal. OMP in float32: indices equal, X within
-1e-4 relative.
+1e-4 relative. On the CPU OMP runs eager on every call (the graph cache
+is the card's), and the cache's key holds every shape and constant of an
+encoding.
 """
 
 import functools
@@ -119,6 +121,53 @@ def test_omp_singular_gram_matches_jax():
     np.testing.assert_allclose(tc.X.numpy()[fin], jX[fin], atol=ATOL)
     np.testing.assert_array_equal(tc.I.numpy(), np.asarray(jc.I))
     np.testing.assert_array_equal(tc.nw.numpy(), np.asarray(jc.nw))
+
+
+def _omp_counts():
+    c = profiling.counters()
+    return [c.get(f"ksvd.{k}", 0)
+            for k in ("omp_eager", "omp_graph_captures", "omp_graph_replays")]
+
+
+def test_omp_on_cpu_runs_eager():
+    """CPU tensors take the eager path on every call, repeats of one key
+    included: each call counts `ksvd.omp_eager` and no capture or replay,
+    the graph cache is left as it was, and each call gives the eager
+    body's code."""
+    D, S, W, valid = _t(*_problem(seed=4))
+    cfg = KSVDConfig(dict_size=20, words_max=6, proj_error=0.1)
+    want = td._omp_encode_eager(D, S, W, valid, cfg)
+    cached = dict(td._graphs)
+    before = _omp_counts()
+    codes = [td.omp_encode(D, S, W, valid, cfg) for _ in range(3)]
+    assert [b - a for a, b in zip(before, _omp_counts())] == [3, 0, 0]
+    assert dict(td._graphs) == cached
+    for code in codes:
+        assert all(torch.equal(a, b) for a, b in zip(code, want))
+
+
+def _omp_key(seed=0, n=30, l=36, K=20, dtype=torch.float64, words_max=6,
+             proj_error=0.1, exact_gram_diag=False):
+    D, S, W, valid = _problem(l=l, K=K, n=n, seed=seed)
+    D, S, W = (T(a).to(dtype) for a in (D, S, W))
+    cfg = KSVDConfig(dict_size=K, words_max=words_max, proj_error=proj_error,
+                     exact_gram_diag=exact_gram_diag)
+    return td.omp_key(D, S, W, T(valid), cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(n=31), dict(l=37), dict(K=21), dict(dtype=torch.float32),
+    dict(words_max=7), dict(proj_error=0.2), dict(exact_gram_diag=True)],
+    ids=["n", "l", "K", "dtype", "words_max", "proj_error", "exact_gram_diag"])
+def test_omp_graph_key_changes_with(change):
+    """A graph replays one encoding's shapes and constants: each of them
+    makes another key."""
+    assert _omp_key(**change) != _omp_key()
+
+
+def test_omp_graph_key_is_the_same_for_new_data():
+    """New data of the same shapes and constants goes through one graph."""
+    assert _omp_key(seed=5) == _omp_key()
 
 
 def test_reconstruct_error_and_power_iteration_match_jax():

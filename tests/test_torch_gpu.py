@@ -13,7 +13,13 @@ step against the small mapping case's map), compress_calibrated
 (method="hmc") launching the kernel twice, and the MAP ascent's CUDA
 graph against the eager ascent (eager, then capture, then replay, at the
 benchmark's shapes; two banks and starts through one graph; gated and
-failed factorizations); the K-SVD codec (OMP and one
+failed factorizations); OMP's CUDA graph against the eager encoding
+(eager, then capture, then replay, bit for bit at the benchmark's depth
+and colour shapes with a singular Gram; two problems through one graph;
+no synchronising call in a replay, none per word eager; K-SVD runs whose
+encodings replay after the first two, equal to the runs that began
+eager, and a compress that replays them all); the
+K-SVD codec (OMP and one
 outer sweep on the card against the CPU in float64 with the same draws,
 one stop-test read per sweep; the atom block kernel against the dense
 plain version at the depth and colour shapes, with atoms of no, one and
@@ -41,8 +47,9 @@ from gp_compressor_tpu_torch.cuda_kernels import sogp_train
 from gp_compressor_tpu_torch.models import sparse_gp
 from gp_compressor_tpu_torch.testing import sogp_regimes
 from gp_compressor_tpu_torch.utils import profiling
-from torch_gpu_case import (bench, bench_cloud, count, dev,  # noqa: F401
-                            launches, same_block, zero_off_active)
+from torch_gpu_case import (bench, bench_cloud, count,  # noqa: F401
+                            count_syncs, dev, launches, same_block,
+                            zero_off_active)
 
 pytestmark = pytest.mark.gpu
 
@@ -507,6 +514,160 @@ def test_map_ascent_graph_rejects_as_eager(dev, calib_bank, ascent_graphs,
         assert (trace[:, stuck] == -torch.inf).all()
         if case == "gated":
             assert torch.isfinite(trace[-1, 1:]).all()
+
+
+@pytest.fixture
+def omp_graphs():
+    """The dictionary module with an empty cache of OMP graphs."""
+    from gp_compressor_tpu_torch.models import dictionary
+
+    dictionary._graphs.clear()
+    yield dictionary
+    dictionary._graphs.clear()
+
+
+def _omp_counts():
+    return [count(f"ksvd.{k}")
+            for k in ("omp_eager", "omp_graph_captures", "omp_graph_replays")]
+
+
+# the benchmark's depth and colour encodings (l 400)
+OMP_SHAPES = {"depth": dict(n=2048, K=200, words=10),
+              "colour": dict(n=6144, K=600, words=20)}
+
+
+def _omp_problem(dev, n, K, words, seed=0):
+    """(D, S, W, valid, cfg), float32 on the card: ksvd_case's sparse rows
+    with masks and padding, a dictionary of normalised data rows (as
+    K-SVD's first one). Every atom is 0 on coordinates 0 and 1 but atom
+    0, which is the first axis; row 0 is the first two axes, unmasked. Its
+    second word finds every unused correlation exactly 0 and takes atom
+    0 again: a singular unit-diagonal Gram."""
+    import numpy as np
+
+    from gp_compressor_tpu_torch.config import KSVDConfig
+    from gp_compressor_tpu_torch.testing import ksvd_case
+
+    S, W, valid = ksvd_case.problem(l=400, K=K, n=n, words=3, seed=seed)
+    r = np.random.default_rng(seed)
+    D = S[r.choice(n - 10, size=K, replace=False)].T.copy()
+    D[:2] = 0.0
+    D /= np.linalg.norm(D, axis=0)
+    D[:, 0] = 0.0
+    D[0, 0] = 1.0
+    S[0], W[0] = 0.0, 1.0
+    S[0, :2] = 1.0
+    cfg = KSVDConfig(dict_size=K, words_max=words, proj_error=0.3)
+    D, S, W = (torch.from_numpy(a).to(dev, torch.float32) for a in (D, S, W))
+    return D, S, W, torch.from_numpy(valid).to(dev), cfg
+
+
+def _same_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(_bits(g.reshape(-1)), _bits(w.reshape(-1)))
+
+
+@pytest.mark.parametrize("shape", list(OMP_SHAPES))
+def test_omp_runs_eager_then_captures_then_replays(dev, omp_graphs, shape):
+    """Three encodings of one problem: the first eager, the second
+    captured and replayed, the third replayed; X, I and nw of each equal
+    the eager body's bit for bit, row 0's non-finite coefficients of a
+    singular Gram included."""
+    dictionary = omp_graphs
+    D, S, W, valid, cfg = _omp_problem(dev, **OMP_SHAPES[shape])
+    want = dictionary._omp_encode_eager(D, S, W, valid, cfg)
+    before = _omp_counts()
+    runs = [dictionary.omp_encode(D, S, W, valid, cfg) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, _omp_counts())] == [1, 1, 2]
+    assert want.I[0, 1] == 0 and want.nw[0] == 2
+    assert not torch.isfinite(want.X[0]).all()
+    assert 2 < float(want.nw[valid].float().mean()) < cfg.words_max
+    for got in runs:
+        _same_bits(got, want)
+
+
+def test_omp_graph_replays_each_problem(dev, omp_graphs):
+    """Two problems of the depth shapes through one graph: each gets the
+    eager body's code of its own data, and the first code is unchanged
+    after the second replay."""
+    dictionary = omp_graphs
+    one = _omp_problem(dev, **OMP_SHAPES["depth"])
+    two = _omp_problem(dev, **OMP_SHAPES["depth"], seed=1)
+    want = [dictionary._omp_encode_eager(*p) for p in (one, two)]
+    before = _omp_counts()
+    dictionary.omp_encode(*one)
+    first = dictionary.omp_encode(*one)
+    kept = [t.clone() for t in first]
+    second = dictionary.omp_encode(*two)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, _omp_counts())] == [1, 1, 2]
+    assert len(dictionary._graphs) == 1
+    _same_bits(first, want[0])
+    _same_bits(second, want[1])
+    _same_bits(first, kept)
+    assert not torch.equal(first.I, second.I)
+
+
+@pytest.mark.parametrize("shape", list(OMP_SHAPES))
+def test_omp_replay_makes_no_synchronising_call(dev, omp_graphs, shape):
+    """A replayed encoding makes no synchronising call; an eager one makes
+    none per word: as many at half the words as at all of them."""
+    import dataclasses
+
+    dictionary = omp_graphs
+    D, S, W, valid, cfg = _omp_problem(dev, **OMP_SHAPES[shape])
+    half = dataclasses.replace(cfg, words_max=cfg.words_max // 2)
+    dictionary._omp_encode_eager(D, S, W, valid, cfg)      # warm-up
+    _, eager = count_syncs(lambda: dictionary.omp_encode(D, S, W, valid, cfg))
+    _, eager_half = count_syncs(
+        lambda: dictionary.omp_encode(D, S, W, valid, half))
+    dictionary.omp_encode(D, S, W, valid, cfg)             # the capture
+    _, replay = count_syncs(lambda: dictionary.omp_encode(D, S, W, valid,
+                                                           cfg))
+    assert _omp_counts()[0] >= 2
+    assert replay == 0
+    assert eager == eager_half
+
+
+def test_ksvd_replays_every_omp_call_after_the_first(dev, omp_graphs):
+    """K-SVD on a compress's depth and colour problems with fixed draws,
+    from an empty cache: the first encoding of each eager, the second
+    captured, every later one replayed; a second run of each replays
+    every encoding (one a sweep and a final one) and gives the first
+    run's dictionary, codes and error bit for bit (the first run's first
+    code was eager's). A compress after them replays every encoding."""
+    from gp_compressor_tpu_torch.models import dictionary
+    from gp_compressor_tpu_torch.workloads import ksvd_compressor as kc
+
+    pts, cols, valid, cfg = _ksvd_cloud(dev)
+    raster = kc.compress(pts, cols, valid, cfg).raster
+    omp_graphs._graphs.clear()
+    pvalid = torch.arange(raster.S.shape[0], device=dev) < raster.n_leaves
+    problems = ((raster.S, raster.W.to(raster.S.dtype), pvalid, cfg.ksvd),
+                kc.rgb_problem(raster, pvalid) + (cfg.rgb_ksvd,))
+    g = torch.Generator(device=dev).manual_seed(3)
+    for S, W, v, kcfg in problems:
+        draws = dictionary.draw_ksvd(v, kcfg, g)
+        before = _omp_counts()
+        first = dictionary.ksvd(S, W, v, kcfg, draws=draws)
+        assert [b - a for a, b in zip(before, _omp_counts())] == \
+            [1, 1, first.iters]
+        before = _omp_counts()
+        again = dictionary.ksvd(S, W, v, kcfg, draws=draws)
+        assert [b - a for a, b in zip(before, _omp_counts())] == \
+            [0, 0, again.iters + 1]
+        assert again.iters == first.iters
+        _same_bits((again.D, again.error) + tuple(again.code),
+                   (first.D, first.error) + tuple(first.code))
+    assert len(omp_graphs._graphs) == 2
+    before = _omp_counts()
+    comp = kc.compress(pts, cols, valid, cfg)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, _omp_counts())] == \
+        [0, 0, comp.depth.iters + comp.rgb.iters + 2]
+    assert kc.rms_error(comp) < 0.08
 
 
 @pytest.mark.parametrize("block", [1, 16])

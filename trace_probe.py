@@ -12,8 +12,8 @@ set-up's outermost spans) and measures two closed-loop windows of
 order alternating by seed: `points_per_s` of each, and the port's
 counts made in each (`calibration.*`: eager ascents, graph captures and
 replays; `ksvd.*`: sweeps, atom blocks, block kernel launches, stop
-reads). Then it sets the
-first seed's entry up again and profiles the cell's profiled requests
+reads, OMP's eager encodings, graph captures and replays). Then it
+sets the first seed's entry up again and profiles the cell's profiled requests
 through the benchmark's own `trace.profile_requests`, twice with tracing
 off and twice on, in turns, and splits the last traced profile by layer
 (`portbench/harness/layers.py`): per-cloud idle and launches of each
@@ -43,7 +43,7 @@ from collections import Counter
 
 # the port's counts a window records: the MAP ascent's eager ascents, graph
 # captures and replays; the K-SVD codec's sweeps, atom blocks, block kernel
-# launches and stop reads
+# launches, stop reads, and OMP's eager encodings, graph captures and replays
 WINDOW_COUNTS = ("calibration.", "ksvd.")
 # the K-SVD codec's spans (workloads/ksvd_compressor.py, models/dictionary.py)
 KSVD_SPANS = {"ksvd.compress", "ksvd.front_end", "ksvd.depth", "ksvd.rgb",
