@@ -1,8 +1,9 @@
 """Typed configuration tree of the port.
 
 Field for field the dataclasses of `gp_compressor_tpu.config` (names,
-defaults and meaning; the comments there explain each constant). Only
-`dtype` differs: it is a `torch.dtype`.
+defaults and meaning; the comments there explain each constant). `dtype`
+differs: it is a `torch.dtype`. `PORT_ONLY` names the fields the JAX
+package lacks; their defaults keep its behaviour.
 """
 
 from __future__ import annotations
@@ -119,6 +120,14 @@ class MappingConfig:
     reg_stride: int = 1               # register every k-th scan point
     spill_bank: int = 128             # width of the overflow training bank
     table_update_max: int = 96        # incremental claim-table update bound
+    # False: the stored pose adds the registration's per-step translations
+    # (the reference's t_cloud), off the pose the scan was inserted at by
+    # (R - I) t; True: composed exactly (mapping.add_cloud_fused)
+    exact_pose: bool = False
+
+
+# fields of the port's configs that the JAX package's lack
+PORT_ONLY = {"MappingConfig": ("exact_pose",)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -78,7 +78,9 @@ def ksvd_compressed_from_numpy(d, device="cuda") -> KSVDCompressed:
 
 
 def _config(cls, d):
-    kw = {f.name: d[f.name] for f in dataclasses.fields(cls)}
+    own = config_mod.PORT_ONLY.get(cls.__name__, ())
+    kw = {f.name: d[f.name] for f in dataclasses.fields(cls)
+          if f.name not in own or f.name in d}
     if "dtype" in kw:
         kw["dtype"] = getattr(torch, np.dtype(kw["dtype"]).name)
     return cls(**kw)

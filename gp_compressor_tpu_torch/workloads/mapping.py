@@ -53,7 +53,7 @@ from gp_compressor_tpu_torch.models import sparse_gp
 from gp_compressor_tpu_torch.models.sparse_gp import SOGPState
 from gp_compressor_tpu_torch.ops.kernels import RBFParams
 from gp_compressor_tpu_torch.ops.noise import ProbitNoise
-from gp_compressor_tpu_torch.utils.profiling import span
+from gp_compressor_tpu_torch.utils.profiling import count, span
 from gp_compressor_tpu_torch.workloads import registration
 from gp_compressor_tpu_torch.workloads.compressor import (CompressedCloud,
                                                          default_params)
@@ -191,6 +191,7 @@ def _unique_sorted(x: torch.Tensor, size: int) -> torch.Tensor:
                          torch.where(first & (rank < size), rank, size), s)
 
 
+@span("map.insert")
 def map_insert(state: MapState, points, colors, valid, cfg: CompressorConfig,
                mcfg: MappingConfig, min_nbr, depth_kp: RBFParams = None,
                depth_s20=None, depth_eps=None):
@@ -200,9 +201,10 @@ def map_insert(state: MapState, points, colors, valid, cfg: CompressorConfig,
     voxel needs to become a patch (1 on the first scan, the reference's
     constructor path). depth_kp / depth_s20 / depth_eps: the map's
     (calibrated) depth hyperparameters, which ride the kernel's row.
-    Each stage is a span (`map.allocate`, `map.sphere_stats`,
-    `map.tables`, `map.claims`, `map.sort_banks`, `map.train`,
-    `map.sanitize`, `map.pending`, `map.carve`).
+    The insert is the span `map.insert`, and each stage a span inside it
+    (`map.allocate`, `map.sphere_stats`, `map.tables`, `map.claims`,
+    `map.sort_banks`, `map.train`, `map.sanitize`, `map.pending`,
+    `map.carve`).
 
     Returns (MapState, info) where info holds 0-dim int32 truncation
     counters: bank_dropped (claimed points beyond the main and spill
@@ -646,6 +648,15 @@ def _zero_info(device):
     return {"bank_dropped": z(), "pend_dropped": z(), "patch_overflow": z()}
 
 
+def registration_view(state: MapState, cfg: CompressorConfig):
+    """What a scan registers against: (the map's view in gp_index order,
+    its persistent claim tables with `nm` refreshed from the stored frames
+    and means), as `registration.register` takes them."""
+    tables = state.tables._replace(nm=torch.cat(
+        [state.rotations[:, :, 0], state.means], 1))
+    return _map_view_gid(state, cfg), tables
+
+
 def add_cloud_fused(state: MapState, points, colors, valid,
                     cfg: CompressorConfig, mcfg: MappingConfig,
                     rcfg: RegistrationConfig = RegistrationConfig(),
@@ -655,9 +666,17 @@ def add_cloud_fused(state: MapState, points, colors, valid,
     accumulated pose, register (on every reg_stride-th point, the pose
     then carried onto the whole scan by the exactly composed translation),
     and insert unless drop_on_reg_cap drops a scan whose registration hit
-    max_steps. Reads whether the map has patches (registration needs a
-    map; the first scan inserts with min_nbr 1). The transform and the
-    registration are the span `map.register`, the insert map_insert's.
+    max_steps (counted as `map.dropped`). Reads whether the map has
+    patches (registration needs a map; the first scan inserts with min_nbr
+    1). The transform and the registration are the span `map.register`,
+    the insert `map.insert`.
+
+    The stored pose takes the registration's rotation and, by default, the
+    plain sum of its per-step translations (the reference's t_cloud,
+    src/gp_registration.cpp:83-84), which leaves it off the pose the scan
+    was inserted at by (R - I) t; with mcfg.exact_pose it is composed
+    exactly, x -> R_reg (R x + t) + t_reg, and the scan is inserted at
+    that pose, transformed once.
 
     Returns (state, diverged (bool), reg_steps (0-dim int32), info)."""
     dev = points.device
@@ -668,21 +687,25 @@ def add_cloud_fused(state: MapState, points, colors, valid,
         has_map = bool(state.n_patches > 0)        # the scan's read
         if register_scan and has_map:
             k = mcfg.reg_stride
-            tables = state.tables._replace(nm=torch.cat(
-                [state.rotations[:, :, 0], state.means], 1))
+            view, tables = registration_view(state, cfg)
             rstate, sub = registration.register(
-                _map_view_gid(state, cfg), pts[::k], colors[::k], valid[::k],
-                cfg, rcfg, depth_kp=depth_kp, depth_s20=depth_s20,
-                tables=tables)
-            pts = sub if k == 1 else transforms.apply(pts, rstate.R_cloud,
-                                                      rstate.t_exact)
-            state = state._replace(
-                R_cloud=transforms.matmul3(rstate.R_cloud, state.R_cloud),
-                t_cloud=state.t_cloud + rstate.t_cloud)
+                view, pts[::k], colors[::k], valid[::k], cfg, rcfg,
+                depth_kp=depth_kp, depth_s20=depth_s20, tables=tables)
+            R_cloud = transforms.matmul3(rstate.R_cloud, state.R_cloud)
+            if mcfg.exact_pose:
+                t_cloud = torch.matmul(rstate.R_cloud, state.t_cloud) \
+                    + rstate.t_exact
+                pts = transforms.apply(points, R_cloud, t_cloud)
+            else:
+                t_cloud = state.t_cloud + rstate.t_cloud
+                pts = sub if k == 1 else transforms.apply(
+                    pts, rstate.R_cloud, rstate.t_exact)
+            state = state._replace(R_cloud=R_cloud, t_cloud=t_cloud)
             if mcfg.drop_on_reg_cap:
                 diverged = int(rstate.step_nbr) >= rcfg.max_steps
             reg_steps = rstate.step_nbr
     if diverged:                               # drop the scan (:22-27)
+        count("map.dropped")
         return state, diverged, reg_steps, _zero_info(dev)
     min_nbr = mcfg.min_points_new_patch if has_map else 1
     state, info = map_insert(state, pts, colors, valid, cfg, mcfg, min_nbr,
@@ -806,7 +829,7 @@ def smc_refine_pose(state: MapState, points, colors, valid,
     particle state, the max log-weight of each step [n_iters])."""
     from gp_compressor_tpu_torch.inference import smc as smc_mod
 
-    comp = _map_view_gid(state, cfg)
+    comp, tables = registration_view(state, cfg)
     dt, dev = points.dtype, points.device
     dkp, _ = default_params(cfg, dev)
     dkp = dkp if depth_kp is None else depth_kp
@@ -831,8 +854,6 @@ def smc_refine_pose(state: MapState, points, colors, valid,
     dmean, dvar = sparse_gp.predict_batch(dkp, d_s20, comp.depth_gp,
                                           grid_uv.expand(B, G, 2))
     dmean = dmean[..., 0]                                    # [B, G]
-    tables = state.tables._replace(nm=torch.cat(
-        [state.rotations[:, :, 0], state.means], 1))
     res = torch.as_tensor(cfg.patch.res, dtype=dt)
     floor = -0.5 * torch.log(2 * torch.pi * (dkp.sigmaf_sq + d_s20)) - 4.5
 

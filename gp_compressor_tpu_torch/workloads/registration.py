@@ -38,6 +38,7 @@ from gp_compressor_tpu_torch.geometry.patches import sort_by_claim
 from gp_compressor_tpu_torch.models import sparse_gp
 from gp_compressor_tpu_torch.ops.kernels import RBFParams
 from gp_compressor_tpu_torch.parallel import mesh as mesh_lib
+from gp_compressor_tpu_torch.utils.profiling import count, span
 from gp_compressor_tpu_torch.workloads.compressor import (CompressedCloud,
                                                          default_params)
 
@@ -547,7 +548,10 @@ def register(comp: CompressedCloud, scan_points, scan_colors, scan_valid,
     init: a state to resume from; its pose is applied with t_exact.
 
     The loop runs on the host: the step counter is read once at entry and
-    each step reads back one flag, its stop test.
+    each step reads back one flag, its stop test. Each step is the span
+    `reg.step`, with its claims pass `reg.claims` and its gradient
+    `reg.grad` inside; the host counts `reg.steps`, `reg.reclaims` and
+    `reg.reads` (the stop reads).
 
     mesh: comp is this rank's rows of the map, as the compressor's entry
     points return it under a mesh (`compressor.shard_cloud` cuts a whole
@@ -603,50 +607,60 @@ def register(comp: CompressedCloud, scan_points, scan_colors, scan_valid,
         return (torch.linalg.norm(delta[:3]) < tol) \
             & (torch.linalg.norm(delta[3:]) < tol)
 
+    def read_stop(delta, eta):
+        count("reg.reads")
+        return bool(stop_test(delta, eta))
+
     eta = torch.full((6,), rcfg.rprop_eta0, dtype=dt, device=dev)
     Wb = Cb = Mb = None
     # the stop test also holds the entry state: a resumed state past
     # min_steps may already be done (read only then)
-    conv = step > rcfg.min_steps and bool(stop_test(state.delta, eta))
+    conv = step > rcfg.min_steps and read_stop(state.delta, eta)
     k = 0                                  # steps since entry
     while not (step > rcfg.min_steps and (step >= rcfg.max_steps or conv)):
-        if k % rcfg.reclaim_every == 0:
-            Wb, Cb, Mb = rebank(pts)
-        delta, ls, cls, _ = _bank_step(comp, cfg, rcfg, dkp, ckp, Wb, Cb, Mb,
-                                       centers, depth_s20=depth_s20,
-                                       mesh=mesh)
-        if rcfg.step_mode == "rprop":
-            # iRprop-: per-axis motion eta * sign(delta), grow 1.2x while
-            # the sign holds, halve and skip the axis on a flip; an axis
-            # with exactly zero gradient shrinks (counts as converged)
-            flip = delta * state.delta < 0
-            eta = torch.clamp(torch.where(flip | (delta == 0.0), 0.5 * eta,
-                                          1.2 * eta),
-                              rcfg.rprop_eta_min, rcfg.rprop_eta_max)
-            move = torch.where(flip, 0.0, torch.sign(delta)) * eta
-            tv, wv = move[:3], move[3:]
-            delta = torch.where(flip, 0.0, delta)
-        else:
-            tv = rcfg.step * delta[:3]
-            wv = rcfg.step * delta[3:]
-            if rcfg.max_motion is not None:
-                cap, tiny = rcfg.max_motion, 1e-30
-                tv = tv * torch.clamp(cap / (torch.linalg.norm(tv) + tiny),
-                                      max=1.0)
-                wv = wv * torch.clamp(cap / (torch.linalg.norm(wv) + tiny),
-                                      max=1.0)
-        R = transforms.euler_xyz(wv)
-        state = RegistrationState(
-            R_cloud=transforms.matmul3(R, state.R_cloud),
-            t_cloud=state.t_cloud + tv,
-            t_exact=torch.matmul(R, state.t_exact) + tv,
-            delta=delta, step_nbr=state.step_nbr + 1, mean_likelihood=ls,
-            mean_color_likelihood=cls)
-        pts = transforms.apply(pts, R, tv)
-        Wb = transforms.apply(Wb, R, tv)
-        step += 1
-        k += 1
-        conv = bool(stop_test(delta, eta))  # the step's one device read
+        with span("reg.step"):
+            if k % rcfg.reclaim_every == 0:
+                with span("reg.claims"):
+                    Wb, Cb, Mb = rebank(pts)
+                count("reg.reclaims")
+            with span("reg.grad"):
+                delta, ls, cls, _ = _bank_step(comp, cfg, rcfg, dkp, ckp, Wb,
+                                               Cb, Mb, centers,
+                                               depth_s20=depth_s20, mesh=mesh)
+            if rcfg.step_mode == "rprop":
+                # iRprop-: per-axis motion eta * sign(delta), grow 1.2x
+                # while the sign holds, halve and skip the axis on a flip;
+                # an axis with exactly zero gradient shrinks (counts as
+                # converged)
+                flip = delta * state.delta < 0
+                eta = torch.clamp(torch.where(flip | (delta == 0.0),
+                                              0.5 * eta, 1.2 * eta),
+                                  rcfg.rprop_eta_min, rcfg.rprop_eta_max)
+                move = torch.where(flip, 0.0, torch.sign(delta)) * eta
+                tv, wv = move[:3], move[3:]
+                delta = torch.where(flip, 0.0, delta)
+            else:
+                tv = rcfg.step * delta[:3]
+                wv = rcfg.step * delta[3:]
+                if rcfg.max_motion is not None:
+                    cap, tiny = rcfg.max_motion, 1e-30
+                    tv = tv * torch.clamp(
+                        cap / (torch.linalg.norm(tv) + tiny), max=1.0)
+                    wv = wv * torch.clamp(
+                        cap / (torch.linalg.norm(wv) + tiny), max=1.0)
+            R = transforms.euler_xyz(wv)
+            state = RegistrationState(
+                R_cloud=transforms.matmul3(R, state.R_cloud),
+                t_cloud=state.t_cloud + tv,
+                t_exact=torch.matmul(R, state.t_exact) + tv,
+                delta=delta, step_nbr=state.step_nbr + 1,
+                mean_likelihood=ls, mean_color_likelihood=cls)
+            pts = transforms.apply(pts, R, tv)
+            Wb = transforms.apply(Wb, R, tv)
+            step += 1
+            k += 1
+            count("reg.steps")
+            conv = read_stop(delta, eta)   # the step's one device read
     return state, pts
 
 

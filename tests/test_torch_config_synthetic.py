@@ -16,8 +16,14 @@ torch.set_num_threads(1)
 
 
 def _assert_same_fields(j, t):
+    """The JAX config's fields, in order, and the port's documented own
+    fields (tcfg.PORT_ONLY) after them, at their defaults."""
     jf, tf = dataclasses.fields(j), dataclasses.fields(t)
-    assert [f.name for f in jf] == [f.name for f in tf]
+    own = tcfg.PORT_ONLY.get(type(t).__name__, ())
+    assert [f.name for f in jf] + list(own) == [f.name for f in tf]
+    for name in own:
+        f = {f.name: f for f in tf}[name]
+        assert getattr(t, name) == f.default, name
     for f in jf:
         a, b = getattr(j, f.name), getattr(t, f.name)
         if f.name == "dtype":

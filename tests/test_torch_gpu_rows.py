@@ -9,6 +9,8 @@ here beside the tests that read it and named by the section of
   * registration of the moved cloud: rprop on the calibrated map and the
     reference-constants row on the headline map (`registration`);
   * the mapping stream, and the occupancy channel on its map (`mapping`);
+    the benchmark cell map.stream's trajectory at the source's motion, held
+    to the cell's limits;
   * NUTS with 4 and 16 chains, ADVI, the HMC-calibrated compress and SMC
     pose refinement against the mapping stream's seed map (`bayes`,
     `nuts_seeds`);
@@ -295,6 +297,31 @@ def test_mapping_stream_matches_jax(stream):
     assert stream["map_points_nonfinite"] == 0
     assert all(v == 0 for v in stream["drops"].values()), stream["drops"]
     assert not any(stream["diverged"])
+
+
+# the benchmark cell map.stream (portbench/configs/gp_mapping.room.json):
+# its entry's trajectory, 11 mm and 1.0 deg a frame, at the configuration's
+# widths under the source's stop rule, held to the cell's limits
+MAP_STREAM_FRAMES = 40
+
+
+def test_map_stream_holds_the_source_motion(dev):
+    """40 frames of the cell through `mapping.add_cloud_fused`: the largest
+    pose error, the share of frames dropped and the leaves the map could
+    not hold within the cell's limits."""
+    from portbench.entries import map_stream
+    from portbench.harness import spec
+
+    p = spec.cell(spec.benchmark(), "map.stream")
+    e = map_stream.Entry(p["config"], p["traffic"], 2 ** 31 + 11, dev)
+    e.setup()
+    e.sample = set()                       # the poses only
+    for i in range(MAP_STREAM_FRAMES):
+        e.request(i)
+    nums = e.check()
+    assert len(e.dropped) == MAP_STREAM_FRAMES
+    for k in ("trans_err_mm", "rot_err_deg", "drop_share", "patch_overflow"):
+        assert nums[k] <= p["limits"][k], nums
 
 
 def test_occupancy_tells_hit_cells_from_carved(dev, stream):

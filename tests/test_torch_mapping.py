@@ -30,6 +30,7 @@ from gp_compressor_tpu.workloads import mapping as jmap
 from gp_compressor_tpu.workloads import registration as jreg
 from gp_compressor_tpu_torch import config as tcfg
 from gp_compressor_tpu_torch.geometry import patches as tpatches
+from gp_compressor_tpu_torch.geometry import transforms as ttf
 from gp_compressor_tpu_torch.io import convert
 from gp_compressor_tpu_torch.models import sparse_gp as tsg
 from gp_compressor_tpu_torch.ops.kernels import RBFParams as TRBF
@@ -342,3 +343,101 @@ def test_map_state_round_trip():
             np.testing.assert_array_equal(a.numpy(), b)
     got = convert.mapping_config_from_dict(dataclasses.asdict(JMCFG))
     assert got == TMCFG
+
+
+# ---- against the plain reference of the source's insert
+# (portbench/reference/workloads/mapping_source.py), and the stream at the
+# source's motion
+
+
+def _source_settings():
+    from portbench.reference import config as rconf
+    from portbench.reference.workloads import mapping_source as ms
+
+    def gp(c):
+        return rconf.GPConfig(**{f.name: getattr(c, f.name)
+                                 for f in dataclasses.fields(rconf.GPConfig)})
+    return ms.Settings(res=0.3, sz=10, min_nbr=30, min_points_for_rotation=4,
+                       bank=64, spill=32, depth_gp=gp(TCFG.depth_gp),
+                       rgb_gp=gp(TCFG.rgb_gp))
+
+
+@pytest.mark.parametrize("k", [1, 2], ids=["pending", "growth"])
+def test_map_insert_matches_source_reference(k):
+    """The port's insert of scan k into its own map of the scans before,
+    at the calibrated-style values, against the reference's insert of the
+    same scan into the same map, float64: which leaves exist and are
+    patches, the W masks and the pending counts equal; frames, means and
+    pending points to 1e-9; the GPs' predicted depth on each patch's grid
+    to 1e-9 m (scan 2 makes patches from pending evidence and fills the
+    spill bank)."""
+    from portbench.harness import map_compare
+    from portbench.reference.ops.kernels import RBFParams as RRBF
+    from portbench.reference.workloads import mapping_source as ms
+    kw = _calib(TRBF, lambda v: torch.tensor(v, dtype=torch.float64))
+    st = tmap.map_init(TCFG, TMCFG, *case.BOX, dtype=torch.float64,
+                       pending_capacity=case.PENDING, device="cpu")
+    for j, scan in enumerate(case.scans()[:k + 1]):
+        before = st
+        st, _ = tmap.map_insert(st, *_tscan(scan), TCFG, TMCFG, MIN_NBR[j],
+                                **kw)
+    m = map_compare.as_map(before)
+    kp = kw["depth_kp"]
+    want = ms.insert(m, *_tscan(case.scans()[k]), _source_settings(),
+                     RRBF(kp.sigmaf_sq, kp.l_sq), kw["depth_s20"],
+                     kw["depth_eps"])
+    got = map_compare.as_map(st)
+    assert got.n_patches == want.n_patches
+    for f in ("key_to_leaf", "created", "W", "pend_count"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("rotations", "means", "rgb_means", "pend_pts", "pend_cols"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   getattr(want, f).numpy(), atol=ATOL,
+                                   err_msg=f)
+    nums = map_compare.insert(got, want, m, 0.3, kp, kw["depth_s20"], 10)
+    assert nums["insert_differ"] == 0.0
+    assert nums["insert_gap"] <= 1e3 * ATOL            # mm
+    if k == 2:
+        assert bool((want.created & ~m.created).any())
+
+
+def test_exact_pose_is_the_pose_the_scan_was_inserted_at():
+    """With exact_pose the stored pose composes the registration's exactly
+    (R_reg (R x + t) + t_reg), and the scan lands where that pose puts it;
+    without it, the reference's plain sum of the steps' translations."""
+    kw = _calib(TRBF, lambda v: torch.tensor(v, dtype=torch.float64))
+    rcfg = case.registration_config(tcfg)
+    sc = [_tscan(s) for s in case.moved_scans()]
+    st = tmap.map_init(TCFG, TMCFG, *case.BOX, dtype=torch.float64,
+                       pending_capacity=case.PENDING, device="cpu")
+    st, _, _, _ = tmap.add_cloud_fused(st, *sc[0], TCFG, TMCFG, rcfg=rcfg,
+                                       **kw)
+    # a start pose off the identity, so that R_reg t differs from t
+    st = st._replace(t_cloud=torch.tensor([0.02, -0.01, 0.015],
+                                          dtype=torch.float64))
+    view, tables = tmap.registration_view(st, TCFG)
+    p, c, v = sc[1]
+    k = TMCFG.reg_stride
+    pts = ttf.apply(p, st.R_cloud, st.t_cloud)
+    reg, _ = treg.register(view, pts[::k], c[::k], v[::k], TCFG, rcfg,
+                           depth_kp=kw["depth_kp"],
+                           depth_s20=kw["depth_s20"], tables=tables)
+    exact = dataclasses.replace(TMCFG, exact_pose=True)
+    a, _, _, _ = tmap.add_cloud_fused(st, p, c, v, TCFG, exact, rcfg=rcfg,
+                                      **kw)
+    b, _, _, _ = tmap.add_cloud_fused(st, p, c, v, TCFG, TMCFG, rcfg=rcfg,
+                                      **kw)
+    assert torch.equal(a.R_cloud, b.R_cloud)
+    np.testing.assert_allclose(
+        a.t_cloud.numpy(), (reg.R_cloud @ st.t_cloud + reg.t_exact).numpy(),
+        atol=1e-15)
+    np.testing.assert_allclose(b.t_cloud.numpy(),
+                               (st.t_cloud + reg.t_cloud).numpy(),
+                               atol=1e-15)
+    assert float(torch.linalg.norm(a.t_cloud - b.t_cloud)) > 1e-5
+    # the inserted scan is the scan at the stored pose
+    want, _ = tmap.map_insert(st._replace(R_cloud=a.R_cloud,
+                                          t_cloud=a.t_cloud),
+                              ttf.apply(p, a.R_cloud, a.t_cloud), c, v,
+                              TCFG, exact, TMCFG.min_points_new_patch, **kw)
+    _assert_state(a, _asdict(want), atol=0.0, tables=False)

@@ -354,3 +354,78 @@ def test_register_reads_once_per_step(monkeypatch):
     st, _ = treg.register(tc, T(spts), T(scols), T(valid), TCFG, rt)
     monkeypatch.undo()
     assert len(reads) == 1 + int(st.step_nbr), reads
+
+
+# ---- against the plain reference of the source's loop
+# (portbench/reference/workloads/registration_source.py): a map built by
+# the port's mapping insert from the small mapping case's first scan at its
+# calibrated-style values, and its moved second scan on every 2nd point
+
+
+@functools.lru_cache(maxsize=None)
+def _source_case(dtype=torch.float64):
+    from gp_compressor_tpu_torch.testing import mapping_case as case
+    from gp_compressor_tpu_torch.workloads import mapping as tmap
+    from portbench.harness import map_compare
+    cfg = case.compressor_config(tcfg, dtype)
+    mcfg = case.mapping_config(tcfg)
+    kp = TRBF(*(torch.tensor(v, dtype=dtype) for v in case.CAL[:2]))
+    s20 = torch.tensor(case.CAL[2], dtype=dtype)
+    st = tmap.map_init(cfg, mcfg, *case.BOX, dtype=dtype,
+                       pending_capacity=case.PENDING, device="cpu")
+    scans = [tuple(T(a) for a in s) for s in case.moved_scans()]
+    st, _ = tmap.map_insert(st, *[a.to(dtype) if a.is_floating_point()
+                                  else a for a in scans[0]], cfg, mcfg, 1,
+                            depth_kp=kp, depth_s20=s20)
+    p, c, v = (a[::2] for a in scans[1])
+    ref = map_compare.registration_map(map_compare.as_map(st),
+                                       cfg.patch.res, kp, s20)
+    return st, cfg, kp, s20, (p.to(dtype), c.to(dtype), v), ref
+
+
+def _register_map(st, cfg, kp, s20, scan, rcfg):
+    from gp_compressor_tpu_torch.workloads import mapping as tmap
+    view, tables = tmap.registration_view(st, cfg)
+    return treg.register(view, *scan, cfg, rcfg, depth_kp=kp,
+                         depth_s20=s20, tables=tables)
+
+
+# float64: rounding alone (1.2e-15 measured); float32: the sums over
+# ~1,300 points' contributions in float32, which the two codes add in other
+# orders (7.8e-7 measured)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)],
+                         ids=["float64", "float32"])
+def test_gradient_matches_source_reference(dtype, tol):
+    """The first step's twist gradient: claims, banks, the closed-form
+    density gradient and the twist mean against the reference's claims,
+    banks and autograd of the density."""
+    from portbench.reference.workloads import registration_source as rs
+    st, cfg, kp, s20, scan, ref = _source_case(dtype)
+    one = tcfg.RegistrationConfig(step_mode="rprop", min_steps=0,
+                                  max_steps=1, bank_points=32)
+    got, _ = _register_map(st, cfg, kp, s20, scan, one)
+    want, n = rs.twist_gradient(scan[0], scan[2], ref, 32)
+    assert n > 1000
+    gap = torch.linalg.norm(got.delta.double() - want.double()) \
+        / torch.linalg.norm(want.double())
+    assert float(gap) <= tol, float(gap)
+
+
+def test_register_loop_matches_source_reference():
+    """The whole loop under the source's stop rule (more than 10 steps,
+    then convergence or the cap of 300) and the iRprop- step, float64: the
+    same steps and the same pose to 1e-9."""
+    from portbench.reference.workloads import registration_source as rs
+    st, cfg, kp, s20, scan, ref = _source_case()
+    rcfg = tcfg.RegistrationConfig(step_mode="rprop", min_steps=10,
+                                   max_steps=300, bank_points=32)
+    got, _ = _register_map(st, cfg, kp, s20, scan, rcfg)
+    R, t, steps = rs.register(scan[0], scan[2], ref, rs.Rule(
+        min_steps=10, max_steps=300, eta0=rcfg.rprop_eta0,
+        eta_min=rcfg.rprop_eta_min, eta_max=rcfg.rprop_eta_max,
+        tol=rcfg.rprop_tol, reclaim_every=rcfg.reclaim_every,
+        bank_points=32))
+    assert 10 < int(got.step_nbr) == steps < 300
+    np.testing.assert_allclose(got.R_cloud.numpy(), R.numpy(), atol=1e-9)
+    np.testing.assert_allclose(got.t_exact.numpy(), t.numpy(), atol=1e-9)

@@ -194,8 +194,9 @@ def test_counts_attach_to_the_innermost_span(traced):
 
 
 def test_mapping_stages_are_spans(traced):
-    """add_cloud_fused: `map.register`, then map_insert's stages in order
-    (a float64 map of the small case's first two scans, on the CPU)."""
+    """add_cloud_fused: `map.register`, then `map.insert` and inside it its
+    stages in order (a float64 map of the small case's first two scans, on
+    the CPU)."""
     cfg = case.compressor_config(tcfg, torch.float64)
     mcfg = case.mapping_config(tcfg)
     rcfg = case.registration_config(tcfg)
@@ -207,12 +208,64 @@ def test_mapping_stages_are_spans(traced):
             torch.from_numpy(v), cfg, mcfg, rcfg=rcfg)
     names = [r.name for r in sorted(profiling.take(), key=lambda r: r.id)
              if r.name.startswith("map.")]
-    stages = ["map.register", "map.allocate", "map.sphere_stats",
-              "map.tables", "map.claims", "map.sort_banks", "map.train",
-              "map.sanitize", "map.pending", "map.carve"]
+    stages = ["map.register", "map.insert", "map.allocate",
+              "map.sphere_stats", "map.tables", "map.claims",
+              "map.sort_banks", "map.train", "map.sanitize", "map.pending",
+              "map.carve"]
     assert names == stages * 2
     assert int(st.n_patches) > 0
     assert math.isfinite(float(st.means[:int(st.n_patches)].sum()))
+
+
+def test_registration_spans_and_counts(traced):
+    """A registered scan: one `reg.step` span a step, inside it `reg.grad`
+    every step and `reg.claims` every reclaim_every-th, all inside
+    `map.register`; the counts `reg.steps` (the scan's steps),
+    `reg.reclaims` and `reg.reads` (one stop read a step) say the same,
+    and a scan dropped at the cap adds one `map.dropped`."""
+    cfg = case.compressor_config(tcfg, torch.float64)
+    mcfg = case.mapping_config(tcfg, drop_on_reg_cap=True)
+    rcfg = tcfg.RegistrationConfig(step_mode="rprop", min_steps=10,
+                                   max_steps=300, bank_points=32)
+    st = mapping.map_init(cfg, mcfg, *case.BOX, dtype=torch.float64,
+                          pending_capacity=case.PENDING, device="cpu")
+    scans = [tuple(torch.from_numpy(a) for a in s)
+             for s in case.moved_scans()]
+    st, _, _, _ = mapping.add_cloud_fused(st, *scans[0], cfg, mcfg,
+                                          rcfg=rcfg)
+    profiling.take()
+    c0 = profiling.counters()
+    st1, dropped, steps, _ = mapping.add_cloud_fused(st, *scans[1], cfg,
+                                                     mcfg, rcfg=rcfg)
+    c1 = profiling.counters()
+    n = int(steps)
+    assert not dropped and 10 < n < 300
+
+    def diff(name):
+        return c1.get(name, 0) - c0.get(name, 0)
+    assert diff("reg.steps") == diff("reg.reads") == n
+    assert diff("reg.reclaims") == math.ceil(n / rcfg.reclaim_every)
+    assert diff("map.dropped") == 0
+    recs = {r.id: r for r in profiling.take()}
+    by = {}
+    for r in recs.values():
+        by.setdefault(r.name, []).append(r)
+    assert len(by["reg.step"]) == len(by["reg.grad"]) == n
+    assert len(by["reg.claims"]) == diff("reg.reclaims")
+    for r in by["reg.grad"] + by["reg.claims"]:
+        assert recs[r.parent].name == "reg.step"
+    for r in by["reg.step"]:
+        assert recs[r.parent].name == "map.register"
+    assert by["reg.step"][0].counts == {"reg.steps": 1, "reg.reads": 1,
+                                        "reg.reclaims": 1}
+    assert by["reg.step"][1].counts == {"reg.steps": 1, "reg.reads": 1}
+    # a scan whose registration reaches the cap is dropped and counted
+    cap = dataclasses.replace(rcfg, min_steps=2, max_steps=3)
+    _, dropped, _, _ = mapping.add_cloud_fused(st, *scans[1], cfg, mcfg,
+                                               rcfg=cap)
+    assert dropped
+    assert profiling.counters()["map.dropped"] - c1.get("map.dropped", 0) \
+        == 1
 
 
 def _ksvd_round_trip(seed=5):
